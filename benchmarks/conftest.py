@@ -6,7 +6,7 @@ test runs, ``docs/developer_guide/performance.md:90-95``). Options:
 - ``--bench-scales=small,medium`` (default: small)
 - ``--bench-module=samplers,losses`` (default: all groups)
 - ``--bench-output=PATH`` JSON results (default: benchmarks/results/latest.json)
-- ``--bench-device=cpu|tpu`` force a backend (default: whatever JAX picks)
+- ``--bench-device=cpu|gpu`` force a backend (default: whatever JAX picks)
 """
 
 import json

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Profiler CLI: trace + cost-profile registry components, and diff runs.
 
-The TPU equivalent of the reference's ``benchmarks/profiler.py`` (torch
+The JAX equivalent of the reference's ``benchmarks/profiler.py`` (torch
 profiler CLI with chrome traces, top-op tables, and markdown diffs):
 
     # profile one registry component (same callables the benchmarks time)

@@ -37,7 +37,7 @@ class BenchSpec:
     name: str  # "group.component[:variant]"
     group: str
     build: Callable[[Scale], Callable[[], object]]  # returns a timed thunk
-    tpu_only: bool = False
+    gpu_only: bool = False
     #: work items one thunk invocation actually performs (for items_per_s).
     #: None = the default ``scale.batch * scale.steps``. Samplers whose
     #: builders scale down the draw count (NUTS runs steps//10 draws, each
@@ -366,7 +366,7 @@ def _loss_specs() -> Iterator[BenchSpec]:
         yield BenchSpec(name=f"losses.{name}", group="losses", build=build)
 
 
-# ---------------------------------------------------------------- ops (TPU)
+# ---------------------------------------------------------------- ops (GPU)
 
 
 def _ops_specs() -> Iterator[BenchSpec]:
@@ -386,19 +386,5 @@ def _ops_specs() -> Iterator[BenchSpec]:
             x, mix.means, scale.steps, 0.05, scale=float(mix.scale)
         )
 
-    def fused_sinkhorn(scale: Scale):
-        from torchebm_tpu.ops import sinkhorn_log_fused
-
-        n = min(scale.batch, 512)
-        x0 = jax.random.normal(_key(), (n, scale.dim))
-        x1 = jax.random.normal(jax.random.fold_in(_key(), 1), (n, scale.dim)) + 1.0
-        C = jnp.sum((x0[:, None, :] - x1[None, :, :]) ** 2, axis=-1)
-        C = C / jnp.max(C)
-        return lambda: sinkhorn_log_fused(C, reg=0.05, n_iters=scale.steps, tol=1e-3)
-
-    yield BenchSpec(name="ops.doublewell_langevin_chain", group="ops", build=fused_chain, tpu_only=True)
-    yield BenchSpec(name="ops.mixture_langevin_chain", group="ops", build=mixture_chain, tpu_only=True)
-    yield BenchSpec(
-        name="ops.sinkhorn_log_fused", group="ops", build=fused_sinkhorn,
-        tpu_only=True, units=lambda s: min(s.batch, 512) ** 2 * s.steps,
-    )
+    yield BenchSpec(name="ops.doublewell_langevin_chain", group="ops", build=fused_chain, gpu_only=True)
+    yield BenchSpec(name="ops.mixture_langevin_chain", group="ops", build=mixture_chain, gpu_only=True)

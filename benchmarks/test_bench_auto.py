@@ -25,8 +25,8 @@ def pytest_generate_tests(metafunc):
 
 
 def test_benchmark(spec, scale, bench_record):
-    if spec.tpu_only and jax.default_backend() != "tpu":
-        pytest.skip("TPU-only benchmark")
+    if spec.gpu_only and jax.default_backend() != "gpu":
+        pytest.skip("GPU-only benchmark: the kernel compiles only for a GPU")
     from torchebm_tpu.utils import benchmark_fn
 
     thunk = spec.build(scale)

@@ -16,7 +16,7 @@ smoke = _common.setup()
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from torchebm_tpu.core import struct
 
 from torchebm_tpu.core import Energy, as_energy
 from torchebm_tpu.samplers import LangevinDynamics

@@ -3,7 +3,7 @@
 Mirrors the reference's scheduler lesson
 (``examples/00-foundations/03-schedulers/01-scheduler-anatomy``). The torch
 library mutates a step counter per scheduler (``base_scheduler.py:73-279``);
-the TPU design makes every schedule a pure function ``value(step)`` so the
+this design makes every schedule a pure function ``value(step)`` so the
 step index can live in the sampler's scan carry — no state, no recompiles,
 and annealing runs entirely on-device.
 """

@@ -2,7 +2,7 @@
 
 Mirrors the reference's parallel-chains lesson
 (``examples/10-sampling/01-mcmc/03-parallel-chains``): "10,000 chains cost
-one integer". On TPU the story goes further — the chain axis is a
+one integer". In JAX the story goes further — the chain axis is a
 ``NamedSharding`` over a device mesh, so the same compiled program spreads
 chains across chips with zero code changes to the sampler.
 """

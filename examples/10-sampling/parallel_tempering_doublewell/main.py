@@ -50,10 +50,8 @@ def main():
     if not smoke:
         assert 0.3 < frac < 0.7, "cold chain failed to mix"
 
-    # Mixture-family targets additionally ride the whole-LADDER Pallas
-    # kernel on eager TPU calls (ops/fused_pt.py: every temperature's
-    # Langevin step AND the exchange sweeps in one launch, measured 7.3x
-    # the compiled scan) — the code below is identical either way.
+    # The same ladder on a mixture target: every temperature steps in the
+    # same compiled program, exchanges are branch-free selects.
     from torchebm_tpu.core import GaussianMixtureEnergy
 
     mix = GaussianMixtureEnergy.eight_gaussians(radius=4.0, scale=0.3)

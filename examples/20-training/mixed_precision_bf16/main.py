@@ -1,6 +1,6 @@
 """Mixed-precision (bf16) training with the precision Policy.
 
-TPU's MXU computes matmuls natively in bfloat16; because bf16 keeps f32's
+Tensor cores compute matmuls in bfloat16; because bf16 keeps f32's
 exponent range there is no GradScaler or loss-scaling story (the reference's
 AMP machinery, ``base_module.py:143-176``, dissolves). The whole policy is a
 dtype discipline — f32 master weights, bf16 compute — carried by
@@ -9,7 +9,7 @@ dtype discipline — f32 master weights, bf16 compute — carried by
 This example trains the same flow-matching field twice (f32 and bf16 compute)
 from identical seeds and shows the loss curves agree to bf16 resolution, then
 runs a few bf16 PCD steps on a conv energy (the image-EBM workload where the
-MXU speedup matters).
+bf16 speedup matters).
 """
 
 import sys, os
@@ -86,7 +86,7 @@ def main():
     if not smoke:
         assert gap < 0.1, "bf16 training diverged from f32"
 
-    # --- bf16 PCD on a conv energy: the MXU-heavy image-EBM configuration ---
+    # --- bf16 PCD on a conv energy: the matmul-heavy image-EBM configuration ---
     policy = bf16_policy()
     net = ConvEnergy2D(channels=(16, 32), dtype=policy.compute_dtype)
     shape = (1, 16, 16)

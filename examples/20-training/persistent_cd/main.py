@@ -4,7 +4,7 @@ Mirrors the reference's persistent-CD lesson
 (``examples/20-training/01-mcmc-losses/02-persistent-cd``): with
 ``persistent=True`` negatives start from a replay buffer instead of the data,
 so chains effectively run for thousands of steps across updates while each
-update only pays for k. The TPU twist: the buffer is an explicit pytree
+update only pays for k. The JAX twist: the buffer is an explicit pytree
 threaded through a single jitted train step — update, MCMC, FIFO push, and
 the gradient all compile into one XLA program.
 """

@@ -18,14 +18,14 @@ smoke = _common.setup()
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from torchebm_tpu.core import struct
 
 from torchebm_tpu.core import CosineScheduler, Energy, LinearScheduler
 from torchebm_tpu.samplers import LangevinDynamics
 
 
 def make_image(size=64):
-    """Procedural target: the TPU glyph — a ring plus three bars."""
+    """Procedural target: a glyph — a ring plus three bars."""
     y, x = jnp.mgrid[0:size, 0:size] / (size - 1) * 2 - 1
     r = jnp.sqrt(x**2 + y**2)
     ring = jnp.exp(-(((r - 0.7) / 0.08) ** 2))

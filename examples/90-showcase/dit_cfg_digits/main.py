@@ -6,7 +6,7 @@ embeddings (with label dropout), trained by conditional flow matching on
 28x28 digits, then sampled class-conditionally through ``FlowSampler`` with
 the ``LabelClassifierFreeGuidance`` wrapper.
 
-Set ``dtype=jnp.bfloat16`` on the backbone for MXU-native matmuls on TPU.
+Set ``dtype=jnp.bfloat16`` on the backbone for bf16 tensor-core matmuls.
 """
 
 import sys, os
@@ -19,7 +19,6 @@ smoke = _common.setup()
 import jax
 import jax.numpy as jnp
 import optax
-from flax import linen as nn
 
 from torchebm_tpu.datasets import load_mnist
 from torchebm_tpu.interpolants import LinearInterpolant
@@ -29,12 +28,13 @@ from torchebm_tpu.models import (
     LabelEmbedder,
     MLPTimestepEmbedder,
 )
+from torchebm_tpu.models.module import Module
 from torchebm_tpu.samplers import FlowSampler
 
 NUM_CLASSES = 10
 
 
-class LabelDiT(nn.Module):
+class LabelDiT(Module):
     """DiT velocity field conditioned on (timestep, label) embeddings."""
 
     embed_dim: int = 128
@@ -44,8 +44,7 @@ class LabelDiT(nn.Module):
     label_dropout: float = 0.1
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, x, t, *, y, train: bool = False):
+    def forward(self, x, t, *, y, train: bool = False):
         c = MLPTimestepEmbedder(out_dim=self.embed_dim, dtype=self.dtype)(t)
         c = c + LabelEmbedder(
             num_classes=NUM_CLASSES,
@@ -73,7 +72,7 @@ def main():
     print(f"dataset: {images.shape}, labels {labels.shape}")
 
     # TORCHEBM_BF16=1 flips on the mixed-precision policy: params/optimizer
-    # stay f32 master weights, the backbone's matmuls run on the MXU in bf16
+    # stay f32 master weights, the backbone's matmuls run in bf16
     # (torchebm_tpu.utils.bf16_policy; reference base_module.py:143-176).
     from torchebm_tpu.utils import bf16_policy, f32_policy
 

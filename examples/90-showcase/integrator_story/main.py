@@ -1,6 +1,6 @@
 """Integrators in practice: a four-chapter quantitative story.
 
-TPU-native retelling of the reference's integrator showcases
+JAX retelling of the reference's integrator showcases
 (``examples/90-showcase/02-integrator-ode/main.py`` — adaptive-vs-fixed
 narrative — and ``03-integrator-story/compute.py`` — the Kepler / stiff-SDE /
 manifold chapters of its web explainer). The web front-end is replaced by

@@ -160,27 +160,3 @@ def test_energies_are_jit_stable(key):
     assert calls == 1  # traced once: params are leaves, not constants
 
 
-def test_as_energy_arch_tag_matches_class_identity():
-    """The silu_mlp kernel tag keys on the LIBRARY MLPEnergy class, not its
-    name — a user class merely named MLPEnergy must not inherit the tag
-    (advisor r4: the neural chain kernel computes a SiLU gradient and cannot
-    distinguish activations from the param tree shape)."""
-    import jax
-
-    from torchebm_tpu.models.nets import MLPEnergy
-
-    real = MLPEnergy(hidden_dims=(8,))
-    x = jnp.ones((2, 3))
-    params = real.init(jax.random.PRNGKey(0), x)
-    assert as_energy(real, params).arch == "silu_mlp"
-
-    class FakeModule:
-        def apply(self, params, x):
-            return jnp.sum(jnp.tanh(x), axis=-1)
-
-        def __call__(self, x):
-            return self.apply({}, x)
-
-    FakeModule.__name__ = "MLPEnergy"
-    fake = FakeModule()
-    assert as_energy(fake, {"w": jnp.ones(())}).arch is None

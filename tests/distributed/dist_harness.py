@@ -1,6 +1,6 @@
 """Two-process jax.distributed spawn harness (CPU backend).
 
-The TPU-stack analogue of the reference's gloo-on-CPU harness
+The JAX analogue of the reference's gloo-on-CPU harness
 (``tests/distributed/dist_harness.py:1-103``): children run
 ``jax.distributed.initialize`` against a localhost coordinator, each with 2
 virtual CPU devices, execute a payload function, and report results back via

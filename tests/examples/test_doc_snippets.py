@@ -16,7 +16,7 @@ pytestmark = pytest.mark.examples
 
 DOCS = os.path.join(os.path.dirname(__file__), "..", "..", "docs")
 PAGES = [
-    "tutorials/langevin_tpu.md",
+    "tutorials/langevin_sampling.md",
     "tutorials/hamiltonian_mechanics.md",
     "tutorials/neural_energy_functions.md",
     "tutorials/bridges_reflow_couplings.md",

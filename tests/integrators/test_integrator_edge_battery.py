@@ -2,7 +2,7 @@
 
 The reference runs a batch/dim/step-size/reproducibility battery per method
 (``tests/integrators/test_rk4.py:639-681`` and siblings); this is the
-parametrized TPU-build equivalent: every distinct integrator in
+parametrized equivalent: every distinct integrator in
 ``INTEGRATOR_REGISTRY`` gets shape edges (single sample, odd dims, extra
 trailing dims), step-size edges (h=0 identity, tiny h), determinism / PRNG-key
 reproducibility, dtype preservation, an integrate-vs-step consistency check,

@@ -37,7 +37,7 @@ def test_same_key_reproduces(key):
 
 
 def test_injected_noise_exact_parity(key):
-    """`noise=` bypasses the internal RNG — exact-parity hook used by the Pallas kernel tests."""
+    """`noise=` bypasses the internal RNG — exact-parity hook used by exact-parity tests."""
     integ = EulerMaruyamaIntegrator()
     x = jax.random.normal(key, (8, 2))
     eps = jax.random.normal(jax.random.fold_in(key, 1), (8, 2))

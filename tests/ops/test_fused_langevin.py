@@ -1,89 +1,31 @@
-"""Pallas kernel tests.
-
-The exact-parity (injected-noise) path runs in interpreter mode on CPU — the
-reference's correctness pattern (``cuda/fused_langevin.py:183-266``: max
-abs err vs eager under the same noise). In-kernel PRNG paths need real TPU
-hardware and are exercised by ``python -m torchebm_tpu.ops.fused_langevin``.
-"""
-
-import math
+"""Stationary statistics of the whole-chain kernels with the in-kernel
+generator: compiled for the card (``-m gpu``), and at a few hundred chains
+through the Pallas interpreter."""
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
 
-from torchebm_tpu.core import DoubleWellEnergy
-from torchebm_tpu.ops import fused_langevin_step
-
-ON_TPU = jax.default_backend() == "tpu"
+from torchebm_tpu.core import GaussianMixtureEnergy
+from torchebm_tpu.ops import doublewell_langevin_chain, mixture_langevin_chain
 
 
-def test_fused_step_exact_parity(key):
-    x = jax.random.normal(key, (256, 4))
-    g = DoubleWellEnergy().gradient(x)
-    eps = jax.random.normal(jax.random.fold_in(key, 1), x.shape)
-    eta, ns = 0.01, 0.7
-    fused = fused_langevin_step(x, g, eta, ns, noise=eps, interpret=not ON_TPU)
-    eager = x - eta * g + ns * math.sqrt(2 * eta) * eps
-    np.testing.assert_allclose(np.asarray(fused), np.asarray(eager), atol=1e-6)
-
-
-def test_fused_step_clamp(key):
-    x = jax.random.normal(key, (64, 2)) * 10
-    g = jnp.zeros_like(x)
-    eps = jnp.zeros_like(x)
-    out = fused_langevin_step(
-        x, g, 0.01, 1.0, noise=eps, clamp=(-1.0, 1.0), interpret=not ON_TPU
-    )
-    assert float(jnp.max(jnp.abs(out))) <= 1.0
-
-
-def test_fused_step_nonaligned_shapes(key):
-    """Shapes that don't tile to (8, 128) round-trip through padding."""
-    x = jax.random.normal(key, (33, 3))
-    g = jnp.ones_like(x)
-    eps = jnp.zeros_like(x)
-    out = fused_langevin_step(x, g, 0.5, 1.0, noise=eps, interpret=not ON_TPU)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(x - 0.5), atol=1e-6)
-    assert out.shape == x.shape
-
-
-@pytest.mark.skipif(not ON_TPU, reason="in-kernel PRNG requires TPU hardware")
-def test_rng_step_statistics(key):
-    x = jnp.zeros((4096, 8))
-    g = jnp.zeros_like(x)
-    out = fused_langevin_step(x, g, 0.01, 1.0, seed=3)
-    noise = np.asarray(out) / math.sqrt(2 * 0.01)
-    assert abs(noise.mean()) < 0.05
-    assert abs(noise.std() - 1.0) < 0.05
-
-
-@pytest.mark.skipif(not ON_TPU, reason="whole-chain kernels require TPU hardware")
-def test_chain_kernels_stationary(key):
-    from torchebm_tpu.core import GaussianMixtureEnergy
-    from torchebm_tpu.ops import doublewell_langevin_chain, mixture_langevin_chain
-
-    x = jax.random.normal(key, (2048, 4))
-    chain = doublewell_langevin_chain(x, 1000, 0.01, 1.0, seed=7)
+def _check_stationary(key, n_chains, **kw):
+    x = jax.random.normal(key, (n_chains // 2, 4))
+    chain = doublewell_langevin_chain(x, 1000, 0.01, 1.0, seed=7, **kw)
     assert 0.6 < float(jnp.mean(jnp.abs(chain))) < 1.2
 
     mix = GaussianMixtureEnergy.eight_gaussians()
-    x2 = jax.random.normal(key, (4096, 2))
-    res = mixture_langevin_chain(x2, mix.means, 500, 0.05, scale=float(mix.scale))
+    x2 = jax.random.normal(key, (n_chains, 2))
+    res = mixture_langevin_chain(x2, mix.means, 500, 0.05, scale=float(mix.scale),
+                                 seed=11, **kw)
     assert 3.5 < float(jnp.mean(jnp.linalg.norm(res, axis=-1))) < 4.5
 
 
-@pytest.mark.skipif(not ON_TPU, reason="whole-run HMC kernel requires TPU hardware")
-def test_hmc_kernel_stationary(key):
-    from torchebm_tpu.core import GaussianMixtureEnergy
-    from torchebm_tpu.ops import mixture_hmc_chain
+@pytest.mark.gpu
+def test_chain_kernels_stationary(key, gpu):
+    _check_stationary(key, 4096)
 
-    mix = GaussianMixtureEnergy.eight_gaussians()
-    x0 = mix.sample(key, 4096)
-    samples, acc = mixture_hmc_chain(
-        x0, mix.means, 300, 0.3, 8, scale=float(mix.scale), seed=11
-    )
-    assert samples.shape == (4096, 2) and acc.shape == (4096,)
-    assert 3.6 < float(jnp.mean(jnp.linalg.norm(samples, axis=-1))) < 4.4
-    assert 0.5 < float(jnp.mean(acc)) <= 1.0
+
+def test_chain_kernels_stationary_interpreted(key):
+    _check_stationary(key, 512, interpret=True)

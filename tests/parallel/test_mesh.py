@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the 8-device virtual CPU mesh.
 
-The TPU analogue of the reference's gloo-CPU distributed tests
+The JAX analogue of the reference's gloo-CPU distributed tests
 (``tests/distributed/``): sharding/collective logic exercised without real
 chips via ``--xla_force_host_platform_device_count=8`` (set in conftest).
 """

@@ -5,8 +5,8 @@ and restore WITH its shardings — every restored array lands directly on its
 template leaf's ``NamedSharding`` (no host-side detour, no Orbax "sharding
 info not provided … unsafe on a different topology" warning) and the params
 survive bitwise. Reference scope: checkpoint/resume is a first-class
-subsystem (``torchebm/utils/training.py:42-118``, SURVEY §5); on TPU that
-must mean sharded.
+subsystem (``torchebm/utils/training.py:42-118``, SURVEY §5); on a device mesh
+that must mean sharded.
 """
 
 import warnings

@@ -78,79 +78,3 @@ def test_gaussian_energy_sample_and_log_z(key):
     assert abs(float(e.log_z()) - (0.5 * d * math.log(2 * math.pi) + 0.5 * float(logdet))) < 1e-6
 
 
-class TestFusedDispatch:
-    """Eager TPU calls with an isotropic Gaussian base and a mixture-family
-    target run the whole anneal in one kernel (stubbed here; parity is
-    pinned in tests/ops/test_ais_parity.py)."""
-
-    def test_force_routes_mixture(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_ais as fa
-
-        calls = []
-
-        def stub(x0, base_mean, base_scale, *, means, betas, step_size,
-                 n_transitions, scale, log_weights, seed, interpret=False):
-            calls.append((x0.shape, means.shape, betas.shape, base_scale))
-            return x0, jnp.zeros(x0.shape[0]), jnp.full(x0.shape[0], 0.7)
-
-        monkeypatch.setattr(fa, "mixture_ais_run", stub)
-        mix = GaussianMixtureEnergy.eight_gaussians(scale=0.4)
-        res = annealed_importance_sampling(
-            key, mix, dim=2, n_samples=64, n_rungs=10, fused="force"
-        )
-        assert calls == [((64, 2), (8, 2), (11,), 1.0)]
-        assert res.samples.shape == (64, 2)
-        assert float(res.acceptance_rate) == pytest.approx(0.7)
-        # logw all zero -> log_z_ratio = -log n + logsumexp(0)*... = 0
-        assert float(res.log_z_ratio) == pytest.approx(0.0, abs=1e-5)
-
-    def test_anisotropic_base_falls_back(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_ais as fa
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("anisotropic base must use the scan path")
-
-        monkeypatch.setattr(fa, "mixture_ais_run", boom)
-        base = GaussianEnergy.create(jnp.zeros(2), jnp.diag(jnp.array([1.0, 4.0])))
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        res = annealed_importance_sampling(
-            key, mix, base=base, n_samples=32, n_rungs=5, fused="force"
-        )
-        assert res.samples.shape == (32, 2)
-
-    def test_default_off_on_cpu(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_ais as fa
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("fused AIS called on CPU under 'auto'")
-
-        monkeypatch.setattr(fa, "mixture_ais_run", boom)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        res = annealed_importance_sampling(
-            key, mix, dim=2, n_samples=32, n_rungs=5
-        )
-        assert res.samples.shape == (32, 2)
-
-    def test_invalid_flag_raises(self, key):
-        with pytest.raises(ValueError, match="fused"):
-            annealed_importance_sampling(
-                key, GaussianMixtureEnergy.eight_gaussians(), dim=2, fused="y"
-            )
-
-
-def test_long_schedule_falls_back_to_scan(key, monkeypatch):
-    """n_rungs past the SMEM table cap must quietly take the scan path from
-    the public entry point (the kernel wrapper's hard error is for direct
-    callers only)."""
-    import torchebm_tpu.ops.fused_ais as fa
-
-    def boom(*a, **k):  # pragma: no cover
-        raise AssertionError("over-cap schedule must use the scan path")
-
-    monkeypatch.setattr(fa, "mixture_ais_run", boom)
-    mix = GaussianMixtureEnergy.eight_gaussians()
-    res = annealed_importance_sampling(
-        key, mix, dim=2, n_samples=8, n_rungs=60_010, step_size=0.1,
-        fused="force",
-    )
-    assert res.samples.shape == (8, 2)

@@ -111,177 +111,6 @@ def test_rmhmc_validation():
         RiemannianManifoldHMC(e, metric_fn=_identity_metric, integrator="leapfrog")
 
 
-class TestFusedDispatch:
-    """Eager TPU calls on 2D mixtures route to the whole-run Pallas HMC kernel
-    (stubbed here — real-kernel tests live in tests/ops/test_fused_langevin.py)."""
-
-    def _stub(self, calls):
-        def stub(x0, means, n_draws, step_size, n_leapfrog, *, scale, log_weights,
-                 mass=None, seed, interpret=False):
-            calls.append((x0.shape, means.shape, n_draws, step_size, n_leapfrog))
-            return x0, jnp.ones(x0.shape[0])
-        return stub
-
-    def test_force_routes_mixture(self, key, monkeypatch):
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_hmc as fh
-
-        calls = []
-        monkeypatch.setattr(fh, "mixture_hmc_chain", self._stub(calls))
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        hmc = HamiltonianMonteCarlo(mix, step_size=0.3, n_leapfrog_steps=7, fused="force")
-        out = hmc.sample(key, dim=2, n_samples=32, n_steps=9)
-        assert calls == [((32, 2), (8, 2), 9, 0.3, 7)]
-        assert out.shape == (32, 2)
-
-    def test_force_routes_ddim_mixture(self, key, monkeypatch):
-        """Round-2 widening: d>2 mixtures dispatch to the general-d kernel."""
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_hmc as fh
-
-        calls = []
-        monkeypatch.setattr(fh, "mixture_hmc_chain", self._stub(calls))
-        means = jax.random.normal(key, (3, 6))
-        mix = GaussianMixtureEnergy.create(means, scale=0.5)
-        hmc = HamiltonianMonteCarlo(mix, step_size=0.2, fused="force")
-        out = hmc.sample(key, dim=6, n_samples=16, n_steps=4)
-        assert calls == [((16, 6), (3, 6), 4, 0.2, 10)]
-        assert out.shape == (16, 6)
-
-    def test_auto_never_dispatches_on_cpu(self, key, monkeypatch):
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_hmc as fh
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("fused HMC kernel called on CPU under 'auto'")
-
-        monkeypatch.setattr(fh, "mixture_hmc_chain", boom)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        hmc = HamiltonianMonteCarlo(mix, step_size=0.3, fused="auto")
-        assert hmc.sample(key, dim=2, n_samples=8, n_steps=3).shape == (8, 2)
-
-    def test_diagnostics_fall_back(self, key, monkeypatch):
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_hmc as fh
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("must not dispatch")
-
-        monkeypatch.setattr(fh, "mixture_hmc_chain", boom)
-        monkeypatch.setattr(fh, "mixture_hmc_chain_trajectory", boom)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        hmc = HamiltonianMonteCarlo(mix, step_size=0.3, fused="force")
-        hmc.sample(key, dim=2, n_samples=8, n_steps=3, return_diagnostics=True)
-
-    def test_trajectory_routes_to_trajectory_kernel(self, key, monkeypatch):
-        """Round-3: return_trajectory rides the DMA trajectory kernel — the
-        R̂/ESS workload no longer falls back to the scan."""
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_hmc as fh
-
-        calls = []
-
-        def stub(x0, means, n_draws, step_size, n_leapfrog, *, thin, mass=None,
-                 seed=0, interpret=False, **target_kw):
-            calls.append((x0.shape, n_draws, thin, n_leapfrog))
-            n_kept = n_draws // thin
-            return (
-                jnp.zeros((n_kept, *x0.shape)),
-                x0,
-                jnp.ones(x0.shape[0]),
-            )
-
-        monkeypatch.setattr(fh, "mixture_hmc_chain_trajectory", stub)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        hmc = HamiltonianMonteCarlo(
-            mix, step_size=0.3, n_leapfrog_steps=5, fused="force"
-        )
-        out = hmc.sample(
-            key, dim=2, n_samples=8, n_steps=9, thin=3, return_trajectory=True
-        )
-        assert calls == [((8, 2), 9, 3, 5)]
-        assert out.shape == (8, 3, 2)
-
-    def test_nonmixture_falls_back(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_hmc as fh
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("must not dispatch")
-
-        monkeypatch.setattr(fh, "mixture_hmc_chain", boom)
-        HamiltonianMonteCarlo(DoubleWellEnergy(), step_size=0.1, fused="force").sample(
-            key, dim=2, n_samples=4, n_steps=2
-        )
-
-    def test_diag_mass_dispatches(self, key, monkeypatch):
-        """Round-2 widening: scalar / (d,) diagonal mass (the
-        warmup(adapt_mass=True) output) stays on the kernel path."""
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_hmc as fh
-
-        seen = []
-
-        def stub(x0, means, n_draws, step_size, n_leapfrog, *, mass=None, **kw):
-            seen.append(None if mass is None else jnp.asarray(mass))
-            return x0, jnp.ones(x0.shape[0])
-
-        monkeypatch.setattr(fh, "mixture_hmc_chain", stub)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        HamiltonianMonteCarlo(mix, step_size=0.3, mass=2.0, fused="force").sample(
-            key, dim=2, n_samples=4, n_steps=2
-        )
-        HamiltonianMonteCarlo(
-            mix, step_size=0.3, mass=jnp.array([1.0, 4.0]), fused="force"
-        ).sample(key, dim=2, n_samples=4, n_steps=2)
-        assert float(seen[0]) == 2.0
-        assert seen[1].tolist() == [1.0, 4.0]
-
-    def test_gaussian_routes_with_precision(self, key, monkeypatch):
-        """Round-3 widening: concrete full-covariance Gaussians dispatch to
-        the precision-packed HMC kernel (the corr-Gaussian ESS workload)."""
-        from torchebm_tpu.core import GaussianEnergy
-        import torchebm_tpu.ops.fused_hmc as fh
-
-        calls = []
-
-        def stub(x0, means, n_draws, step_size, n_leapfrog, *, precision,
-                 mass=None, seed=0, interpret=False):
-            calls.append((x0.shape, means.shape, precision.shape, n_leapfrog))
-            return x0, jnp.ones(x0.shape[0])
-
-        monkeypatch.setattr(fh, "mixture_hmc_chain", stub)
-        e = GaussianEnergy.create(
-            jnp.zeros(2), jnp.array([[2.0, 0.9], [0.9, 1.0]])
-        )
-        hmc = HamiltonianMonteCarlo(
-            e, step_size=0.2, n_leapfrog_steps=7, fused="force"
-        )
-        out = hmc.sample(key, dim=2, n_samples=8, n_steps=3)
-        assert calls == [((8, 2), (1, 2), (2, 2), 7)]
-        assert out.shape == (8, 2)
-
-    def test_traced_calls_fall_back(self, key, monkeypatch):
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_hmc as fh
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("must not dispatch under trace")
-
-        monkeypatch.setattr(fh, "mixture_hmc_chain", boom)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        hmc = HamiltonianMonteCarlo(mix, step_size=0.3, fused="force")
-
-        @jax.jit
-        def run(k):
-            return hmc.sample(k, dim=2, n_samples=4, n_steps=2)
-
-        assert run(key).shape == (4, 2)
-
-    def test_invalid_flag_raises(self):
-        with pytest.raises(ValueError, match="fused"):
-            HamiltonianMonteCarlo(DoubleWellEnergy(), fused="always")
-
-
 class TestMassAdaptation:
     def test_adapted_mass_matches_inverse_variance(self, key):
         """Anisotropic Gaussian diag(1, 25): Stan-style adaptation should
@@ -327,20 +156,3 @@ class TestMassAdaptation:
         assert len(out) == 2
 
 
-@pytest.mark.skipif(
-    jax.default_backend() != "tpu", reason="in-kernel PRNG requires TPU hardware"
-)
-def test_gaussian_kernel_moments_on_tpu(key):
-    """Round-3: the precision-packed HMC kernel preserves a correlated
-    Gaussian's moments (statistical check; exact parity is pinned by the
-    injected-randomness tests in tests/ops/test_chain_parity.py)."""
-    cov = jnp.array([[1.0, 0.8], [0.8, 1.0]])
-    e = GaussianEnergy.create(jnp.zeros(2), cov)
-    x0 = e.sample(key, 512)
-    hmc = HamiltonianMonteCarlo(e, step_size=0.2, n_leapfrog_steps=8)
-    traj = hmc.sample(
-        jax.random.fold_in(key, 1), x=x0, n_steps=300, return_trajectory=True
-    )
-    flat = traj.reshape(-1, 2)
-    np.testing.assert_allclose(np.asarray(jnp.mean(flat, 0)), np.zeros(2), atol=0.1)
-    np.testing.assert_allclose(np.asarray(jnp.cov(flat.T)), np.asarray(cov), atol=0.12)

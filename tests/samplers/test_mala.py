@@ -86,121 +86,3 @@ def test_jits_inside_user_program(key):
     assert run(key).shape == (8, 2)
 
 
-class TestFusedDispatch:
-    """Eager TPU calls on mixtures route to the whole-chain MALA kernel."""
-
-    def test_force_routes_mixture(self, key, monkeypatch):
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_mala as fm
-
-        calls = []
-
-        def stub(x0, means, n_steps, step_size, *, scale, log_weights, seed,
-                 interpret=False):
-            calls.append((x0.shape, means.shape, n_steps, step_size))
-            return x0, jnp.ones(x0.shape[0])
-
-        monkeypatch.setattr(fm, "mixture_mala_chain", stub)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        mala = MetropolisAdjustedLangevin(mix, step_size=0.05, fused="force")
-        out = mala.sample(key, dim=2, n_samples=16, n_steps=6)
-        assert calls == [((16, 2), (8, 2), 6, 0.05)]
-        assert out.shape == (16, 2)
-
-    def test_auto_never_dispatches_on_cpu(self, key, monkeypatch):
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_mala as fm
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("fused MALA kernel called on CPU under 'auto'")
-
-        monkeypatch.setattr(fm, "mixture_mala_chain", boom)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        mala = MetropolisAdjustedLangevin(mix, step_size=0.05)
-        assert mala.sample(key, dim=2, n_samples=8, n_steps=3).shape == (8, 2)
-
-    def test_diagnostics_and_unsupported_energy_fall_back(self, key, monkeypatch):
-        from torchebm_tpu.core import DoubleWellEnergy, GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_mala as fm
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("must not dispatch")
-
-        monkeypatch.setattr(fm, "mixture_mala_chain", boom)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        MetropolisAdjustedLangevin(mix, step_size=0.05, fused="force").sample(
-            key, dim=2, n_samples=4, n_steps=2, return_diagnostics=True
-        )
-        # the double well has no MALA kernel: scan path
-        MetropolisAdjustedLangevin(
-            DoubleWellEnergy(), step_size=0.05, fused="force"
-        ).sample(key, dim=2, n_samples=4, n_steps=2)
-
-    def test_gaussian_routes_with_precision(self, key, monkeypatch):
-        """Round-3 widening: concrete full-covariance Gaussians dispatch to
-        the precision-packed MALA kernel (parity pinned in
-        tests/ops/test_chain_parity.py)."""
-        import torchebm_tpu.ops.fused_mala as fm
-
-        calls = []
-
-        def stub(x0, means, n_steps, step_size, *, precision, seed,
-                 interpret=False):
-            calls.append((x0.shape, means.shape, precision.shape))
-            return x0, jnp.ones(x0.shape[0])
-
-        monkeypatch.setattr(fm, "mixture_mala_chain", stub)
-        cov = jnp.array([[2.0, 0.5], [0.5, 1.0]])
-        e = GaussianEnergy.create(jnp.zeros(2), cov)
-        mala = MetropolisAdjustedLangevin(e, step_size=0.05, fused="force")
-        out = mala.sample(key, dim=2, n_samples=16, n_steps=4)
-        assert calls == [((16, 2), (1, 2), (2, 2))]
-        assert out.shape == (16, 2)
-
-    def test_trajectory_routes_to_trajectory_kernel(self, key, monkeypatch):
-        """Round-3: return_trajectory rides the DMA trajectory kernel."""
-        from torchebm_tpu.core import GaussianMixtureEnergy
-        import torchebm_tpu.ops.fused_mala as fm
-
-        calls = []
-
-        def stub(x0, means, n_steps, step_size, *, thin, seed=0,
-                 interpret=False, **target_kw):
-            calls.append((x0.shape, n_steps, thin))
-            n_kept = n_steps // thin
-            return jnp.zeros((n_kept, *x0.shape)), x0, jnp.ones(x0.shape[0])
-
-        monkeypatch.setattr(fm, "mixture_mala_chain_trajectory", stub)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        mala = MetropolisAdjustedLangevin(mix, step_size=0.05, fused="force")
-        out = mala.sample(
-            key, dim=2, n_samples=8, n_steps=8, thin=2, return_trajectory=True
-        )
-        assert calls == [((8, 2), 8, 2)]
-        assert out.shape == (8, 4, 2)
-
-    def test_invalid_flag_raises(self):
-        from torchebm_tpu.core import GaussianMixtureEnergy
-
-        with pytest.raises(ValueError, match="fused"):
-            MetropolisAdjustedLangevin(
-                GaussianMixtureEnergy.eight_gaussians(), fused="maybe"
-            )
-
-
-@pytest.mark.skipif(
-    jax.default_backend() != "tpu", reason="in-kernel PRNG requires TPU hardware"
-)
-def test_gaussian_kernel_moments_on_tpu(key):
-    """Round-3: the precision-packed MALA kernel preserves a correlated
-    Gaussian's moments exactly (MH-corrected chain at a coarse step)."""
-    cov = jnp.array([[1.0, 0.8], [0.8, 1.0]])
-    e = GaussianEnergy.create(jnp.zeros(2), cov)
-    x0 = e.sample(key, 512)
-    mala = MetropolisAdjustedLangevin(e, step_size=0.5)
-    traj = mala.sample(
-        jax.random.fold_in(key, 1), x=x0, n_steps=300, return_trajectory=True
-    )
-    flat = traj.reshape(-1, 2)
-    np.testing.assert_allclose(np.asarray(jnp.mean(flat, 0)), np.zeros(2), atol=0.1)
-    np.testing.assert_allclose(np.asarray(jnp.cov(flat.T)), np.asarray(cov), atol=0.12)

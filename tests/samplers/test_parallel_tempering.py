@@ -119,194 +119,3 @@ def test_reproducible_and_decorrelated(key):
     assert not bool(jnp.all(a == c))
 
 
-class TestFusedDispatch:
-    """Eager TPU calls on mixture-family targets route the whole ladder —
-    Langevin steps AND exchange sweeps — to the fused PT kernel (stubbed here;
-    parity is pinned in tests/ops/test_pt_parity.py)."""
-
-    def test_force_routes_mixture(self, key, monkeypatch):
-        import numpy as np
-
-        import torchebm_tpu.ops.fused_pt as fpt
-        from torchebm_tpu.core import GaussianMixtureEnergy
-
-        calls = []
-
-        def stub(replicas, means, *, n_steps, step_size, noise_scale, betas,
-                 swap_every, scale, log_weights, seed, clamp=None,
-                 interpret=False):
-            calls.append((replicas.shape, means.shape, n_steps, betas, swap_every))
-            return replicas, jnp.float32(0.5)
-
-        monkeypatch.setattr(fpt, "pt_langevin_chain", stub)
-        mix = GaussianMixtureEnergy.eight_gaussians(scale=0.4)
-        pt = ParallelTemperingLangevin(
-            mix, temperatures=(1.0, 2.0, 4.0), step_size=0.05, swap_every=3,
-            fused="force",
-        )
-        out = pt.sample(key, dim=2, n_samples=32, n_steps=12)
-        assert out.shape == (32, 2)
-        (rshape, mshape, n_steps, betas, swap_every), = calls
-        assert rshape == (3, 32, 2) and mshape == (8, 2)
-        assert n_steps == 12 and swap_every == 3
-        np.testing.assert_allclose(betas, (1.0, 0.5, 0.25))
-
-    def test_force_routes_gaussian_precision(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_pt as fpt
-
-        calls = []
-
-        def stub(replicas, means, *, precision, **kw):
-            calls.append((replicas.shape, means.shape, precision.shape))
-            return replicas, jnp.float32(0.0)
-
-        monkeypatch.setattr(fpt, "pt_langevin_chain", stub)
-        cov = jnp.array([[2.0, 0.5], [0.5, 1.0]])
-        pt = ParallelTemperingLangevin(
-            GaussianEnergy.create(jnp.zeros(2), cov), temperatures=(1.0, 2.0),
-            step_size=0.05, fused="force",
-        )
-        assert pt.sample(key, dim=2, n_samples=8, n_steps=4).shape == (8, 2)
-        assert calls == [((2, 8, 2), (1, 2), (2, 2))]
-
-    def test_doublewell_stays_on_scan(self, key, monkeypatch):
-        """The PT kernel shares the mixture-family evaluators only; the
-        double-well target keeps the scan path even when forced."""
-        import torchebm_tpu.ops.fused_pt as fpt
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("double-well PT must use the scan path")
-
-        monkeypatch.setattr(fpt, "pt_langevin_chain", boom)
-        pt = ParallelTemperingLangevin(
-            DoubleWellEnergy(), temperatures=(1.0, 2.0), step_size=0.01,
-            fused="force",
-        )
-        assert pt.sample(key, dim=2, n_samples=8, n_steps=6).shape == (8, 2)
-
-    def test_diagnostics_and_schedulers_fall_back(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_pt as fpt
-        from torchebm_tpu.core import CosineScheduler, GaussianMixtureEnergy
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("must fall back to the scan path")
-
-        monkeypatch.setattr(fpt, "pt_langevin_chain", boom)
-        mix = GaussianMixtureEnergy.eight_gaussians()
-        pt = ParallelTemperingLangevin(
-            mix, temperatures=(1.0, 2.0), step_size=0.05, fused="force"
-        )
-        out, diag = pt.sample(
-            key, dim=2, n_samples=8, n_steps=6, return_diagnostics=True
-        )
-        assert "swap_acceptance_rate" in diag
-        pt_sched = ParallelTemperingLangevin(
-            mix, temperatures=(1.0, 2.0),
-            step_size=CosineScheduler(0.05, 0.01, 6), fused="force",
-        )
-        assert pt_sched.sample(key, dim=2, n_samples=8, n_steps=6).shape == (8, 2)
-
-    def test_default_off_on_cpu(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_pt as fpt
-        from torchebm_tpu.core import GaussianMixtureEnergy
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("fused PT kernel called on CPU under 'auto'")
-
-        monkeypatch.setattr(fpt, "pt_langevin_chain", boom)
-        pt = ParallelTemperingLangevin(
-            GaussianMixtureEnergy.eight_gaussians(), step_size=0.05
-        )
-        assert pt.sample(key, dim=2, n_samples=8, n_steps=6).shape == (8, 2)
-
-    def test_traced_calls_fall_back(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_pt as fpt
-        from torchebm_tpu.core import GaussianMixtureEnergy
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("fused PT kernel must not dispatch under trace")
-
-        monkeypatch.setattr(fpt, "pt_langevin_chain", boom)
-        pt = ParallelTemperingLangevin(
-            GaussianMixtureEnergy.eight_gaussians(), step_size=0.05, fused="force"
-        )
-
-        @jax.jit
-        def run(k):
-            return pt.sample(k, dim=2, n_samples=8, n_steps=4)
-
-        assert run(key).shape == (8, 2)
-
-    def test_invalid_flag_raises(self):
-        from torchebm_tpu.core import GaussianMixtureEnergy
-
-        with pytest.raises(ValueError, match="fused"):
-            ParallelTemperingLangevin(
-                GaussianMixtureEnergy.eight_gaussians(), fused="yes"
-            )
-
-
-class TestFusedTrajectoryAndReplicas:
-    def test_trajectory_routes_to_trajectory_kernel(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_pt as fpt
-        from torchebm_tpu.core import GaussianMixtureEnergy
-
-        calls = []
-
-        def stub(replicas, *, thin, n_steps, **kw):
-            calls.append((replicas.shape, n_steps, thin))
-            n_kept = n_steps // thin
-            traj = jnp.zeros((n_kept, *replicas.shape[1:]))
-            return traj, replicas, jnp.float32(0.0)
-
-        monkeypatch.setattr(fpt, "pt_langevin_chain_trajectory", stub)
-        pt = ParallelTemperingLangevin(
-            GaussianMixtureEnergy.eight_gaussians(), temperatures=(1.0, 2.0),
-            step_size=0.05, fused="force",
-        )
-        out = pt.sample(
-            key, dim=2, n_samples=16, n_steps=12, thin=3, return_trajectory=True
-        )
-        assert calls == [((2, 16, 2), 12, 3)]
-        assert out.shape == (16, 4, 2)
-
-    def test_run_replicas_dispatches_fused(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_pt as fpt
-        from torchebm_tpu.core import GaussianMixtureEnergy
-
-        calls = []
-
-        def stub(replicas, *, n_steps, betas, **kw):
-            calls.append((replicas.shape, n_steps, betas))
-            return replicas, jnp.float32(0.25)
-
-        monkeypatch.setattr(fpt, "pt_langevin_chain", stub)
-        pt = ParallelTemperingLangevin(
-            GaussianMixtureEnergy.eight_gaussians(), temperatures=(1.0, 2.0),
-            step_size=0.05, fused="force",
-        )
-        reps = jnp.zeros((2, 16, 2))
-        ladder, acc = pt.run_replicas(key, reps, 7)
-        assert calls == [((2, 16, 2), 7, (1.0, 0.5))]
-        assert ladder.shape == (2, 16, 2)
-        assert float(acc) == 0.25
-
-    def test_run_replicas_traced_falls_back(self, key, monkeypatch):
-        import torchebm_tpu.ops.fused_pt as fpt
-        from torchebm_tpu.core import GaussianMixtureEnergy
-
-        def boom(*a, **k):  # pragma: no cover
-            raise AssertionError("fused run_replicas must not dispatch under trace")
-
-        monkeypatch.setattr(fpt, "pt_langevin_chain", boom)
-        pt = ParallelTemperingLangevin(
-            GaussianMixtureEnergy.eight_gaussians(), temperatures=(1.0, 2.0),
-            step_size=0.05, fused="force",
-        )
-
-        @jax.jit
-        def run(k, reps):
-            return pt.run_replicas(k, reps, 3)
-
-        ladder, _ = run(key, jnp.zeros((2, 8, 2)))
-        assert ladder.shape == (2, 8, 2)

@@ -119,10 +119,10 @@ def test_trajectory_final_slot_matches_plain_run(name, sampler, energy, key):
 
 
 class TestGDFusedDispatch:
-    """GradientDescentSampler rides the Langevin chain kernels at
-    noise_scale=0 (an exact no-op term) on eager TPU calls."""
+    """GradientDescentSampler rides the Langevin chain kernel at
+    noise_scale=0 (an exact no-op term) on eager GPU calls."""
 
-    def test_force_routes_and_matches_scan_exactly(self, monkeypatch):
+    def test_force_routes_and_matches_scan_exactly(self, monkeypatch, gpu_dispatch):
         import jax
         import jax.numpy as jnp
         import numpy as np
@@ -146,7 +146,7 @@ class TestGDFusedDispatch:
         assert out.shape == (16, 2)
 
         # real-kernel equivalence in interpret mode: noise_scale=0 means the
-        # in-kernel PRNG contribution is exactly zero -> matches the scan
+        # in-kernel generator's contribution is exactly zero -> matches the scan
         monkeypatch.undo()
         x0 = mix.sample(key, 64)
         scan = GradientDescentSampler(mix, step_size=0.05, fused="off").sample(

@@ -1,6 +1,6 @@
 """Mixed-precision policy tests (reference ``base_module.py:143-176`` parity).
 
-The TPU bf16 policy must (a) keep params/optimizer state in f32, (b) run
+The bf16 policy must (a) keep params/optimizer state in f32, (b) run
 compute in bf16, (c) preserve integer conditioning dtypes, and (d) train to
 the same place as f32 within bf16 resolution — the reference asserts its AMP
 path falls back gracefully; here the equivalent guarantee is loss-curve

@@ -1,4 +1,4 @@
-"""TorchEBM-TPU: a TPU-native energy-based / simulation-free generative modeling framework.
+"""torchebm-tpu: a JAX energy-based / simulation-free generative modeling framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
 ``soran-ghaderi/torchebm`` (see /root/reference). The organizing idea is the same
@@ -11,12 +11,12 @@ six composable axes (reference ``README.md:39-60``):
 - **sampler**          (:mod:`torchebm_tpu.samplers`)
 - **integrator**       (:mod:`torchebm_tpu.integrators`)
 
-but the execution model is TPU-first: components are immutable pytrees
-(``flax.struct``), sampling chains compile to single XLA programs via
-``lax.scan``/``lax.while_loop``, randomness is explicit ``jax.random`` key
-threading, distribution is ``jax.sharding.Mesh`` + ``NamedSharding`` over
-ICI/DCN, and the hottest inner loops have Pallas kernel implementations
-(:mod:`torchebm_tpu.ops`).
+but the execution model is JAX's: components are immutable pytrees
+(:mod:`torchebm_tpu.core.struct`), sampling chains compile to single XLA
+programs via ``lax.scan``/``lax.while_loop``, randomness is explicit
+``jax.random`` key threading, distribution is ``jax.sharding.Mesh`` +
+``NamedSharding``, and the Langevin chain on analytic targets has a GPU
+kernel (:mod:`torchebm_tpu.ops`).
 
 Subpackages lazy-load via module ``__getattr__`` (mirrors reference
 ``torchebm/__init__.py:40-47``).

@@ -1,6 +1,6 @@
 """Core contracts: energies, schedulers, and re-exported base classes.
 
-The TPU-native analogue of ``torchebm/core/__init__.py:48-86``. Base classes
+The JAX analogue of ``torchebm/core/__init__.py:48-86``. Base classes
 for integrators/interpolants/couplings live with their implementations (no
 torch-style module registry is needed when everything is a pytree), but are
 re-exported here for API parity.

@@ -1,6 +1,6 @@
 r"""Energy function contracts and analytic test energies.
 
-TPU-native re-design of the reference's ``BaseModel`` family
+JAX re-design of the reference's ``BaseModel`` family
 (``torchebm/core/base_model.py:49-316``). Key differences from the torch design:
 
 - Energies are **immutable pytrees** (``flax.struct.dataclass``), so they flow
@@ -26,7 +26,7 @@ from typing import Any, Callable, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from . import struct
 
 Array = jax.Array
 
@@ -100,18 +100,13 @@ class WrappedEnergy(Energy):
 
     ``fn`` is static (hashable, baked into the jit cache key); ``params`` is a
     pytree leaf container, so training updates do not retrigger compilation.
-    This is how flax/haiku model ``apply`` functions enter the sampler/loss
-    stack: ``WrappedEnergy(model.apply, params)``.
+    This is how model ``apply`` functions (the library's networks, or any
+    flax/haiku-style module) enter the sampler/loss stack:
+    ``WrappedEnergy(model.apply, params)``.
     """
 
     fn: Callable[..., Array] = struct.field(pytree_node=False)
     params: Any = None
-    #: optional architecture tag enabling kernel fast paths that must know
-    #: the exact compute graph (e.g. ``"silu_mlp"`` = MLPEnergy's SiLU stack
-    #: → the whole-chain neural Langevin kernel). ``as_energy`` sets it
-    #: automatically for known model classes; set it yourself only if ``fn``
-    #: really is that architecture.
-    arch: Any = struct.field(pytree_node=False, default=None)
 
     def energy(self, x: Array, **kwargs: Any) -> Array:
         if self.params is None:
@@ -124,8 +119,8 @@ class WrappedEnergy(Energy):
 def as_energy(model: Any, params: Any = None) -> Energy:
     """Coerce ``model`` into an :class:`Energy`.
 
-    Accepts an :class:`Energy` (returned as-is), a flax ``nn.Module``-like
-    object with ``.apply`` (requires ``params``), or a bare callable
+    Accepts an :class:`Energy` (returned as-is), a module-like object with
+    ``.apply`` (requires ``params``), or a bare callable
     ``fn(x)->(B,)`` / ``fn(params,x)->(B,)``.
     """
     if isinstance(model, Energy):
@@ -133,14 +128,7 @@ def as_energy(model: Any, params: Any = None) -> Energy:
     if hasattr(model, "apply") and not callable(model):  # pragma: no cover
         raise TypeError(f"Cannot interpret {model!r} as an energy function.")
     if hasattr(model, "apply") and params is not None:
-        # Identity match against the library class — a user class merely
-        # *named* "MLPEnergy" must not inherit the SiLU-MLP kernel tag (the
-        # neural chain kernel computes a SiLU gradient and cannot tell
-        # activations apart from the param tree shape alone).
-        from ..models.nets import MLPEnergy
-
-        arch = "silu_mlp" if type(model) is MLPEnergy else None
-        return WrappedEnergy(fn=model.apply, params=params, arch=arch)
+        return WrappedEnergy(fn=model.apply, params=params)
     if callable(model):
         return WrappedEnergy(fn=model, params=params)
     raise TypeError(f"Cannot interpret {model!r} as an energy function.")
@@ -168,7 +156,7 @@ class DoubleWellEnergy(Energy):
 
     def gradient(self, x: Array) -> Array:
         # Analytic: 4 h x (x² - b²); elementwise-separable — this is the form
-        # the fused Pallas chain kernel inlines (ops/fused_langevin.py).
+        # the whole-chain Langevin kernel inlines (ops/fused_langevin.py).
         return 4.0 * self.barrier_height * x * (x * x - self.b**2)
 
 
@@ -234,7 +222,7 @@ class GaussianMixtureEnergy(Energy):
 
     Build addition (not in the reference's analytic set): the exact energy of
     the 8gaussians / grid / pinwheel-style synthetic datasets, used as the
-    headline Langevin benchmark target (BASELINE config 1). ``log_weights``
+    headline Langevin benchmark target. ``log_weights``
     keeps the mixture computation in stable log-space
     (``logsumexp``); the analytic gradient is the responsibility-weighted sum,
     obtained here by autodiff of the fused logsumexp (XLA fuses it into the
@@ -277,7 +265,7 @@ class GaussianMixtureEnergy(Energy):
     def gradient(self, x: Array) -> Array:
         r"""Analytic :math:`\nabla E = (x - \sum_k r_k(x)\,\mu_k)/\sigma^2` with
         softmax responsibilities :math:`r_k` — one forward pass instead of the
-        logsumexp VJP (the responsibility matmul rides the MXU)."""
+        logsumexp VJP."""
         x = _atleast_batch(x)
         diff = x[:, None, :] - self.means[None, :, :]  # (B, K, d)
         logits = self.log_weights - 0.5 * jnp.sum(diff * diff, axis=-1) / (self.scale**2)

@@ -1,6 +1,6 @@
 r"""Step-indexed parameter schedules as pure functions.
 
-TPU-native re-design of the reference scheduler family
+JAX re-design of the reference scheduler family
 (``torchebm/core/base_scheduler.py:73-969``). The reference schedulers are
 mutable objects with ``step()``/``reset()``/``state_dict()``; their computed
 values are all closed-form functions of ``step_count``, so here each scheduler
@@ -25,7 +25,7 @@ from typing import Sequence, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from . import struct
 
 Array = jax.Array
 ScalarOrSchedule = Union[float, "BaseScheduler"]
@@ -102,7 +102,7 @@ class ExponentialDecayScheduler(BaseScheduler):
 
     def value(self, step) -> Array:
         step = jnp.asarray(step, jnp.float32)
-        # decay^t as exp(t·log γ): stable and cheap on the VPU.
+        # decay^t as exp(t·log γ): stable and cheap elementwise.
         val = self.start_value * jnp.exp(step * math.log(self.decay_rate))
         return jnp.maximum(jnp.float32(self.min_value), val)
 

@@ -20,7 +20,7 @@ from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 Array = jax.Array
 

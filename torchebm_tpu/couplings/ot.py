@@ -14,7 +14,7 @@ torch implementations:
 - Greedy nearest-free-pair is re-expressed as ``n`` rounds of masked global
   argmin (identical pairing to the reference's sorted-scan on the host,
   ``ot.py:182-217``, but vectorized: each round is one ``argmin`` over the
-  masked cost matrix on the VPU instead of a host-side byte-array scan).
+  masked cost matrix instead of a host-side byte-array scan).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from .base import BaseCostCoupling, BaseCoupling, BaseModelCoupling, CouplingResult
 
@@ -45,40 +45,6 @@ __all__ = [
 
 
 # ---------------------------------------------------------------- solvers
-
-
-def _use_fused_sinkhorn(C: Array, reg, tol, damping, fused: str) -> bool:
-    """Dispatch gate for the whole-loop Pallas kernel (``ops/fused_sinkhorn``).
-
-    TPU backend only (CPU tests exercise the XLA path; the kernel itself is
-    covered by interpret-mode parity tests), float32 cost matrix (the kernel
-    computes in f32 — non-f32 inputs keep the XLA path so their numerics are
-    never silently changed), hyperparameters concrete (they are baked into
-    the kernel program), matrix inside the VMEM budget. Unlike the sampler
-    chain kernels this engages under an outer ``jit`` — ``pallas_call``
-    traces transparently, and the training step that owns the coupling is
-    always jitted. ``fused="force"`` overrides the backend and dtype gates
-    (off-TPU it runs the kernel in interpret mode, matching the analytic
-    chain kernels' convention).
-    """
-    if fused == "off":
-        return False
-    if fused != "force":
-        if jax.default_backend() != "tpu":
-            return False
-        if C.dtype != jnp.float32:
-            return False
-    for v in (reg, tol, damping):
-        if isinstance(v, jax.core.Tracer):
-            return False
-    from ..ops.fused_sinkhorn import fits_fused_sinkhorn
-
-    return fits_fused_sinkhorn(*C.shape)
-
-
-def _fused_interpret() -> bool:
-    """Interpret-mode flag for force-dispatched kernels off-TPU."""
-    return jax.default_backend() != "tpu"
 
 
 def _sinkhorn_potentials(M, log_mu, log_nu, n_iters, tol, unroll, damping=1.0):
@@ -139,21 +105,12 @@ def sinkhorn_log(
     n_iters: int,
     tol: float = 0.0,
     unroll: int = 1,
-    fused: str = "auto",
 ) -> Array:
     """Log-domain Sinkhorn; returns the **log** transport plan (n, m).
 
     ``n_iters`` is the iteration cap; with ``tol > 0`` the fixed point exits
     early once ``max|Δf| < tol`` (typical exit ≪ cap at training batch sizes).
-    On TPU, matrices that fit VMEM ride the whole-loop Pallas kernel
-    (:func:`torchebm_tpu.ops.fused_sinkhorn.sinkhorn_log_fused`) — one launch
-    instead of ~2·n_iters sequential logsumexp kernels; ``fused="off"``
-    forces the XLA path.
     """
-    if _use_fused_sinkhorn(C, reg, tol, 1.0, fused):
-        from ..ops.fused_sinkhorn import sinkhorn_log_fused
-
-        return sinkhorn_log_fused(C, reg, n_iters, tol=tol, interpret=_fused_interpret())
     n, m = C.shape
     M = -C / reg
     f, g = _sinkhorn_potentials(M, -math.log(n), -math.log(m), n_iters, tol, unroll)
@@ -167,19 +124,11 @@ def unbalanced_sinkhorn_log(
     n_iters: int,
     tol: float = 0.0,
     unroll: int = 1,
-    fused: str = "auto",
 ) -> Array:
     r"""KL-relaxed log-domain Sinkhorn with damping :math:`\phi=\rho/(\rho+\varepsilon)`
-    (Chizat et al. 2018); returns the log plan. Same ``tol``/``unroll``/
-    ``fused`` semantics as :func:`sinkhorn_log` (the damped update rides the
-    same whole-loop kernel)."""
+    (Chizat et al. 2018); returns the log plan. Same ``tol``/``unroll``
+    semantics as :func:`sinkhorn_log`."""
     fi = reg_marginal / (reg_marginal + reg)
-    if _use_fused_sinkhorn(C, reg, tol, fi, fused):
-        from ..ops.fused_sinkhorn import sinkhorn_log_fused
-
-        return sinkhorn_log_fused(
-            C, reg, n_iters, tol=tol, damping=fi, interpret=_fused_interpret()
-        )
     n, m = C.shape
     M = -C / reg
     f, g = _sinkhorn_potentials(
@@ -297,7 +246,7 @@ def greedy_assignment(cost: Array) -> Array:
     """Nearest-free-pair greedy assignment (reference ``ot.py:182-217``).
 
     The reference sorts all n² pairs once and scans them host-side; the
-    previous TPU form ran n sequential rounds of a full (n, n) argmin —
+    previous form ran n sequential rounds of a full (n, n) argmin —
     O(n³) work. This version assigns, each round, every *locally dominant*
     free pair (cheapest in both its row and its column): the cheapest
     remaining pair is always locally dominant, and a locally dominant pair is
@@ -384,7 +333,6 @@ class SinkhornCoupling(BaseCostCoupling):
     reg: float = struct.field(pytree_node=False, default=0.05)
     n_iters: int = struct.field(pytree_node=False, default=100)
     tol: float = struct.field(pytree_node=False, default=1e-3)
-    fused: str = struct.field(pytree_node=False, default="auto")
 
     def __post_init__(self):
         if self.reg <= 0:
@@ -398,7 +346,7 @@ class SinkhornCoupling(BaseCostCoupling):
         if key is None:
             raise ValueError("SinkhornCoupling draws row-conditionally; a PRNG key is required.")
         log_plan = sinkhorn_log(
-            cost, reg=self.reg, n_iters=self.n_iters, tol=self.tol, fused=self.fused
+            cost, reg=self.reg, n_iters=self.n_iters, tol=self.tol
         )
         return jax.random.categorical(key, log_plan, axis=1)
 
@@ -411,7 +359,6 @@ class UnbalancedSinkhornCoupling(BaseCostCoupling):
     reg_marginal: float = struct.field(pytree_node=False, default=1.0)
     n_iters: int = struct.field(pytree_node=False, default=100)
     tol: float = struct.field(pytree_node=False, default=1e-3)
-    fused: str = struct.field(pytree_node=False, default="auto")
 
     def __post_init__(self):
         if self.reg <= 0:
@@ -437,7 +384,6 @@ class UnbalancedSinkhornCoupling(BaseCostCoupling):
             reg_marginal=self.reg_marginal,
             n_iters=self.n_iters,
             tol=self.tol,
-            fused=self.fused,
         )
         mass = jnp.exp(jax.scipy.special.logsumexp(log_plan, axis=1))
         weights = mass / jnp.maximum(jnp.mean(mass), 1e-12)

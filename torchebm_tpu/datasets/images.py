@@ -1,4 +1,4 @@
-r"""Image datasets for conv-energy training (BASELINE config 4).
+r"""Image datasets for conv-energy training (PCD on MNIST-like images).
 
 Build addition — the reference ships only 2D synthetic datasets. ``load_mnist``
 prefers real MNIST idx files from disk (``MNIST_PATH`` env var or common cache

@@ -1,4 +1,4 @@
-"""Numerical integrators (ODE / SDE / symplectic) for TPU-native EBM dynamics.
+"""Numerical integrators (ODE / SDE / symplectic) for EBM dynamics in JAX.
 
 Mirrors the capability surface of ``torchebm/integrators/`` (13 integrators +
 registry, reference ``integrators/__init__.py:8-24``) with all stepping loops

@@ -1,6 +1,6 @@
 r"""Integrator contracts: explicit/DIRK Runge-Kutta, SDE, and symplectic families.
 
-TPU-native re-design of ``torchebm/core/base_integrator.py`` (889 LoC). The
+JAX re-design of ``torchebm/core/base_integrator.py`` (889 LoC). The
 reference steps a mutable state dict from host Python, caches tableau tensors
 per device, and pays one ``.item()`` host sync per attempted adaptive step
 (``base_integrator.py:481-483``). Here:
@@ -30,7 +30,7 @@ from typing import Any, Callable, ClassVar, Dict, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 Array = jax.Array
 State = Dict[str, Array]
@@ -268,7 +268,7 @@ class BaseRungeKuttaIntegrator(BaseIntegrator):
         ``h *= clamp(safety * err^{-1/p}, min_factor, max_factor)``, with FSAL
         first-stage reuse. The whole loop is one ``lax.while_loop`` — the
         accept/reject branch that forces a host sync per attempted step in the
-        reference stays on the VPU here.
+        reference stays on the device here.
         """
         dtype = x.dtype
         p = float(self.order)
@@ -418,7 +418,7 @@ class BaseSymplecticIntegrator(BaseIntegrator):
     ``separable`` subclasses take ``drift(x, t)`` (= force) + ``mass``;
     non-separable ones take ``force(x, p, t)`` + ``velocity(x, p, t)``.
     ``safe`` mode clamps forces to ±1e6 and sanitizes NaN/Inf — branch-free on
-    the VPU, matching the reference's sync-free rationale.
+    the device, matching the reference's sync-free rationale.
     """
 
     family: ClassVar[str] = "symplectic"

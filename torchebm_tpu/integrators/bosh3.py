@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from typing import ClassVar, Optional, Tuple
 
-from flax import struct
+from ..core import struct
 
 from .base import BaseRungeKuttaIntegrator
 

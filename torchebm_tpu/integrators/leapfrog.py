@@ -1,12 +1,12 @@
 r"""Symplectic leapfrog (Störmer–Verlet) integrators: separable and generalised.
 
-Reference: ``torchebm/integrators/leapfrog.py:10-493``. TPU-native differences:
+Reference: ``torchebm/integrators/leapfrog.py:10-493``. Differences in this JAX design:
 
 - ``integrate`` is a ``lax.scan`` carrying ``(x, p, force)`` — the force at the
   end of one step is reused as the start force of the next, halving gradient
   evaluations per trajectory relative to the reference's per-step re-evaluation
   (``leapfrog.py:159-186``) while computing the identical composition.
-- ``safe`` mode's clamp + ``nan_to_num`` are branch-free VPU ops (the reference
+- ``safe`` mode's clamp + ``nan_to_num`` are branch-free elementwise ops (the reference
   chose in-place ``nan_to_num_`` for the same sync-free reason,
   ``base_integrator.py:875-889``).
 - The generalised (non-separable) variant solves its two implicit stages by
@@ -19,7 +19,7 @@ from typing import Callable, ClassVar, Dict, Optional, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from .base import BaseSymplecticIntegrator, State
 

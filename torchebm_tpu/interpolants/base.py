@@ -15,7 +15,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 Array = jax.Array
 

@@ -11,7 +11,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from .base import BaseInterpolant, expand_t_like_x
 

@@ -1,6 +1,6 @@
 r"""Loss contracts and parameter-injection plumbing.
 
-TPU-native re-design of ``torchebm/core/base_loss.py``. The torch design holds
+JAX re-design of ``torchebm/core/base_loss.py``. The torch design holds
 a mutable ``nn.Module`` whose parameters autograd tracks implicitly; here the
 trainable parameters are passed **explicitly** to every loss call and injected
 into the stored :class:`~torchebm_tpu.core.energies.WrappedEnergy` (and into
@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import Energy, WrappedEnergy, as_energy
 

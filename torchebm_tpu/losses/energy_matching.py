@@ -25,7 +25,7 @@ from typing import Any, Dict, Optional, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import Energy
 from ..core.schedulers import (

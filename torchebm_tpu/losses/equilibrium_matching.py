@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.schedulers import BaseScheduler, sched_init
 from ..couplings import BaseCoupling, resolve_coupling

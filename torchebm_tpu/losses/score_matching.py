@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import Energy
 from .base import BaseLoss

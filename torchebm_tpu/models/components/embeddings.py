@@ -7,14 +7,14 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from ..module import Dense, Embed, Module
 
 Array = jax.Array
 
 __all__ = ["MLPTimestepEmbedder", "LabelEmbedder"]
 
 
-class MLPTimestepEmbedder(nn.Module):
+class MLPTimestepEmbedder(Module):
     """Sinusoidal frequency embedding of a scalar timestep followed by an MLP."""
 
     out_dim: int
@@ -33,21 +33,20 @@ class MLPTimestepEmbedder(nn.Module):
             emb = jnp.concatenate([emb, jnp.zeros_like(emb[:, :1])], axis=-1)
         return emb
 
-    @nn.compact
-    def __call__(self, t: Array) -> Array:
+    def forward(self, t: Array) -> Array:
         t = t.reshape(t.shape[0]) if t.ndim != 1 else t
         freq = self.sinusoidal_embedding(t, self.frequency_embedding_size)
-        h = nn.Dense(self.out_dim, dtype=self.dtype)(freq)
-        h = nn.silu(h)
-        return nn.Dense(self.out_dim, dtype=self.dtype)(h)
+        h = Dense(self.out_dim, dtype=self.dtype)(freq)
+        h = jax.nn.silu(h)
+        return Dense(self.out_dim, dtype=self.dtype)(h)
 
 
-class LabelEmbedder(nn.Module):
+class LabelEmbedder(Module):
     """Label embedding with classifier-free-guidance token dropping.
 
     With ``dropout_prob > 0`` an extra row encodes the null/unconditional
-    label (id ``num_classes``). Training-time dropping draws from the flax
-    ``"label_dropout"`` RNG collection; ``force_drop_mask`` overrides it.
+    label (id ``num_classes``). Training-time dropping draws from the
+    ``"label_dropout"`` random stream (``apply(..., rngs=...)``); ``force_drop_mask`` overrides it.
     """
 
     num_classes: int
@@ -58,8 +57,7 @@ class LabelEmbedder(nn.Module):
     def null_label_id(self) -> Optional[int]:
         return self.num_classes if self.dropout_prob > 0 else None
 
-    @nn.compact
-    def __call__(
+    def forward(
         self,
         labels: Array,
         *,
@@ -67,7 +65,7 @@ class LabelEmbedder(nn.Module):
         force_drop_mask: Optional[Array] = None,
     ) -> Array:
         use_null = self.dropout_prob > 0
-        table = nn.Embed(self.num_classes + (1 if use_null else 0), self.out_dim)
+        table = Embed(self.num_classes + (1 if use_null else 0), self.out_dim)
         if use_null and (train or force_drop_mask is not None):
             if force_drop_mask is None:
                 rng = self.make_rng("label_dropout")

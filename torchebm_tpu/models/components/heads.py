@@ -10,7 +10,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from ..module import Dense, Module, layer_norm, zeros
 
 from .patch import unpatchify2d
 from .transformer import modulate
@@ -20,7 +20,7 @@ Array = jax.Array
 __all__ = ["AdaLNZeroPatchHead"]
 
 
-class AdaLNZeroPatchHead(nn.Module):
+class AdaLNZeroPatchHead(Module):
     embed_dim: int
     patch_size: int
     out_channels: int
@@ -28,25 +28,24 @@ class AdaLNZeroPatchHead(nn.Module):
     eps: float = 1e-6
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, tokens: Array, cond: Array) -> Array:
-        mod = nn.Dense(
+    def forward(self, tokens: Array, cond: Array) -> Array:
+        mod = Dense(
             2 * self.embed_dim,
-            kernel_init=nn.initializers.zeros,
-            bias_init=nn.initializers.zeros,
+            kernel_init=zeros,
+            bias_init=zeros,
             dtype=self.dtype,
             name="modulation",
-        )(nn.silu(cond))
+        )(jax.nn.silu(cond))
         shift, scale = jnp.split(mod, 2, axis=1)
         tokens = modulate(
-            nn.LayerNorm(use_bias=False, use_scale=False, epsilon=self.eps, dtype=self.dtype)(tokens),
+            layer_norm(tokens, self.eps, self.dtype),
             shift,
             scale,
         )
-        patches = nn.Dense(
+        patches = Dense(
             self.patch_size * self.patch_size * self.out_channels,
-            kernel_init=nn.initializers.zeros,
-            bias_init=nn.initializers.zeros,
+            kernel_init=zeros,
+            bias_init=zeros,
             dtype=self.dtype,
             name="proj",
         )(tokens)

@@ -1,10 +1,9 @@
 r"""Patchify/unpatchify helpers and the patch embedding.
 
 Reference: ``torchebm/models/components/patch.py:9-56``. The reference embeds
-patches with a strided ``Conv2d``; on TPU the idiomatic lowering of that conv
-IS patchify-then-matmul (one big MXU GEMM over ``(B·N, C·P·P) @ (C·P·P, D)``),
-so :class:`ConvPatchEmbed2d` implements it that way directly — same math, no
-layout shuffling for the convolution engine. The image interface stays NCHW
+patches with a strided ``Conv2d``; a stride-P P×P convolution is exactly
+patchify-then-matmul (one GEMM over ``(B·N, C·P·P) @ (C·P·P, D)``), so
+:class:`ConvPatchEmbed2d` implements it that way directly. The image interface stays NCHW
 for reference parity.
 """
 
@@ -12,7 +11,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from ..module import Dense, Module
 
 Array = jax.Array
 
@@ -46,14 +45,13 @@ def unpatchify2d(tokens: Array, patch_size: int, *, out_channels: int) -> Array:
     return x.reshape(b, c, grid * p, grid * p)
 
 
-class ConvPatchEmbed2d(nn.Module):
-    """Patch embedding: patchify + Dense (≡ strided conv, one MXU GEMM)."""
+class ConvPatchEmbed2d(Module):
+    """Patch embedding: patchify + Dense (≡ strided conv, one GEMM)."""
 
     embed_dim: int
     patch_size: int
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def forward(self, x: Array) -> Array:
         tokens = patchify2d(x, self.patch_size)
-        return nn.Dense(self.embed_dim, dtype=self.dtype, name="proj")(tokens)
+        return Dense(self.embed_dim, dtype=self.dtype, name="proj")(tokens)

@@ -1,7 +1,7 @@
 r"""Transformer building blocks with adaLN-Zero conditioning.
 
-Reference: ``torchebm/models/components/transformer.py:10-109``. TPU notes:
-QKV is one fused Dense (single MXU GEMM); attention softmax runs in float32
+Reference: ``torchebm/models/components/transformer.py:10-109``. QKV is one
+fused Dense (a single GEMM); attention softmax runs in float32
 regardless of the compute ``dtype`` (bf16-safe); the adaLN modulation head is
 zero-initialized so every block starts as the identity.
 """
@@ -12,7 +12,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from ..module import Dense, Module, layer_norm, zeros
 
 Array = jax.Array
 
@@ -24,22 +24,21 @@ def modulate(x: Array, shift: Array, scale: Array) -> Array:
     return x * (1 + scale[:, None, :]) + shift[:, None, :]
 
 
-class MultiheadSelfAttention(nn.Module):
+class MultiheadSelfAttention(Module):
     """Self-attention with fused QKV projection and f32 softmax accumulation."""
 
     embed_dim: int
     num_heads: int
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def forward(self, x: Array) -> Array:
         if self.embed_dim % self.num_heads != 0:
             raise ValueError(
                 f"embed_dim ({self.embed_dim}) must be divisible by num_heads ({self.num_heads})"
             )
         b, n, d = x.shape
         head_dim = self.embed_dim // self.num_heads
-        qkv = nn.Dense(3 * self.embed_dim, dtype=self.dtype, name="qkv")(x)
+        qkv = Dense(3 * self.embed_dim, dtype=self.dtype, name="qkv")(x)
         qkv = qkv.reshape(b, n, 3, self.num_heads, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, hd)
 
@@ -47,23 +46,22 @@ class MultiheadSelfAttention(nn.Module):
         logits = jnp.einsum("bnhd,bmhd->bhnm", q, k) * scale
         weights = jax.nn.softmax(logits.astype(jnp.float32), axis=-1).astype(x.dtype)
         y = jnp.einsum("bhnm,bmhd->bnhd", weights, v).reshape(b, n, d)
-        return nn.Dense(self.embed_dim, dtype=self.dtype, name="out_proj")(y)
+        return Dense(self.embed_dim, dtype=self.dtype, name="out_proj")(y)
 
 
-class FeedForward(nn.Module):
+class FeedForward(Module):
     embed_dim: int
     mlp_ratio: float = 4.0
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def forward(self, x: Array) -> Array:
         hidden = int(self.embed_dim * self.mlp_ratio)
-        h = nn.Dense(hidden, dtype=self.dtype)(x)
-        h = nn.gelu(h, approximate=True)
-        return nn.Dense(self.embed_dim, dtype=self.dtype)(h)
+        h = Dense(hidden, dtype=self.dtype)(x)
+        h = jax.nn.gelu(h, approximate=True)
+        return Dense(self.embed_dim, dtype=self.dtype)(h)
 
 
-class AdaLNZeroBlock(nn.Module):
+class AdaLNZeroBlock(Module):
     """Transformer block with adaLN-Zero conditioning (zero-init modulation)."""
 
     embed_dim: int
@@ -73,20 +71,17 @@ class AdaLNZeroBlock(nn.Module):
     eps: float = 1e-6
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: Array, cond: Array) -> Array:
-        mod = nn.Dense(
+    def forward(self, x: Array, cond: Array) -> Array:
+        mod = Dense(
             6 * self.embed_dim,
-            kernel_init=nn.initializers.zeros,
-            bias_init=nn.initializers.zeros,
+            kernel_init=zeros,
+            bias_init=zeros,
             dtype=self.dtype,
             name="modulation",
-        )(nn.silu(cond))
+        )(jax.nn.silu(cond))
         shift1, scale1, gate1, shift2, scale2, gate2 = jnp.split(mod, 6, axis=1)
 
-        norm = lambda h: nn.LayerNorm(
-            use_bias=False, use_scale=False, epsilon=self.eps, dtype=self.dtype
-        )(h)
+        norm = lambda h: layer_norm(h, self.eps, self.dtype)
         attn = MultiheadSelfAttention(self.embed_dim, self.num_heads, dtype=self.dtype)
         mlp = FeedForward(self.embed_dim, self.mlp_ratio, dtype=self.dtype)
 

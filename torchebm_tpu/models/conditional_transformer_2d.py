@@ -6,9 +6,9 @@ the conditioning may arrive positionally, as ``cond=`` or as ``t=`` (the
 library-wide ``model(x, t)`` convention). Unknown keyword arguments raise
 rather than being swallowed.
 
-TPU design: patch embedding is patchify+GEMM, all matmuls run in the module's
-compute ``dtype`` (set ``dtype=jnp.bfloat16`` for MXU-native training; params
-stay float32), attention softmax is f32, and the fixed sin-cos positional
+Design: patch embedding is patchify+GEMM, all matmuls run in the module's
+compute ``dtype`` (set ``dtype=jnp.bfloat16`` for bf16 tensor-core training;
+params stay float32), attention softmax is f32, and the fixed sin-cos positional
 table is a trace constant (no buffer plumbing).
 """
 
@@ -18,7 +18,6 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 from .components import (
     AdaLNZeroBlock,
@@ -26,13 +25,14 @@ from .components import (
     ConvPatchEmbed2d,
     build_2d_sincos_pos_embed,
 )
+from .module import Module
 
 Array = jax.Array
 
 __all__ = ["ConditionalTransformer2D"]
 
 
-class ConditionalTransformer2D(nn.Module):
+class ConditionalTransformer2D(Module):
     in_channels: int = 1
     out_channels: int = 1
     input_size: int = 32
@@ -45,8 +45,7 @@ class ConditionalTransformer2D(nn.Module):
     use_sincos_pos_embed: bool = True
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: Array, cond: Optional[Array] = None, *, t: Optional[Array] = None) -> Array:
+    def forward(self, x: Array, cond: Optional[Array] = None, *, t: Optional[Array] = None) -> Array:
         c = cond if cond is not None else t
         if c is None:
             raise ValueError(

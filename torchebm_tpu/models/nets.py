@@ -3,7 +3,7 @@ r"""Ready-made networks: MLP energy/field and a conv energy for image EBMs.
 The reference ships only the DiT backbone and defines tiny MLP energies inline
 in tests/examples (e.g. ``tests/distributed/test_fsdp2_score_matching.py:42-50``);
 these are promoted to reusable modules here. ``ConvEnergy2D`` is a **build
-addition** required by BASELINE config 4 (PCD conv-energy on MNIST).
+addition** for PCD conv-energy training on MNIST-like images.
 """
 
 from __future__ import annotations
@@ -12,28 +12,27 @@ from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+from .module import Conv, Dense, Module
 
 Array = jax.Array
 
 __all__ = ["MLPEnergy", "MLPVelocityField", "ConvEnergy2D"]
 
 
-class MLPEnergy(nn.Module):
+class MLPEnergy(Module):
     """Scalar energy MLP: ``(B, d) -> (B,)``. SiLU activations."""
 
     hidden_dims: Sequence[int] = (128, 128)
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def forward(self, x: Array) -> Array:
         h = x.reshape(x.shape[0], -1).astype(self.dtype)
         for width in self.hidden_dims:
-            h = nn.silu(nn.Dense(width, dtype=self.dtype)(h))
-        return nn.Dense(1, dtype=self.dtype)(h).squeeze(-1).astype(jnp.float32)
+            h = jax.nn.silu(Dense(width, dtype=self.dtype)(h))
+        return Dense(1, dtype=self.dtype)(h).squeeze(-1).astype(jnp.float32)
 
 
-class MLPVelocityField(nn.Module):
+class MLPVelocityField(Module):
     """Time-conditioned vector field ``(x, t) -> dx`` for flow/EqM training.
 
     Time enters through a sinusoidal embedding concatenated to the input.
@@ -43,23 +42,22 @@ class MLPVelocityField(nn.Module):
     time_embed_dim: int = 32
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: Array, t: Array) -> Array:
+    def forward(self, x: Array, t: Array) -> Array:
         from .components.embeddings import MLPTimestepEmbedder
 
         d = x.shape[-1]
         te = MLPTimestepEmbedder.sinusoidal_embedding(t, self.time_embed_dim)
         h = jnp.concatenate([x, te.astype(x.dtype)], axis=-1).astype(self.dtype)
         for width in self.hidden_dims:
-            h = nn.silu(nn.Dense(width, dtype=self.dtype)(h))
-        return nn.Dense(d, dtype=self.dtype)(h).astype(jnp.float32)
+            h = jax.nn.silu(Dense(width, dtype=self.dtype)(h))
+        return Dense(d, dtype=self.dtype)(h).astype(jnp.float32)
 
 
-class ConvEnergy2D(nn.Module):
+class ConvEnergy2D(Module):
     """Convolutional scalar energy for image EBMs: ``(B, C, H, W) -> (B,)``.
 
-    NCHW interface (library convention); internally NHWC, the TPU-native conv
-    layout. Strided SiLU convs + dense head — the standard PCD image-EBM
+    NCHW interface (library convention); internally NHWC, the layout the
+    convolution runs in. Strided SiLU convs + dense head — the standard PCD image-EBM
     architecture (swish convnet, e.g. Du & Mordatch 2019).
 
     ``data_format="NHWC"`` accepts channels-last input directly — for
@@ -74,15 +72,14 @@ class ConvEnergy2D(nn.Module):
     dtype: jnp.dtype = jnp.float32
     data_format: str = "NCHW"
 
-    @nn.compact
-    def __call__(self, x: Array) -> Array:
+    def forward(self, x: Array) -> Array:
         if self.data_format == "NHWC":
             h = x.astype(self.dtype)
         else:
             h = jnp.transpose(x, (0, 2, 3, 1)).astype(self.dtype)  # NCHW -> NHWC
         for ch in self.channels:
-            h = nn.Conv(ch, (3, 3), strides=(2, 2), padding="SAME", dtype=self.dtype)(h)
-            h = nn.silu(h)
+            h = Conv(ch, (3, 3), strides=(2, 2), padding="SAME", dtype=self.dtype)(h)
+            h = jax.nn.silu(h)
         h = h.reshape(h.shape[0], -1)
-        h = nn.silu(nn.Dense(self.dense_dim, dtype=self.dtype)(h))
-        return nn.Dense(1, dtype=self.dtype)(h).squeeze(-1).astype(jnp.float32)
+        h = jax.nn.silu(Dense(self.dense_dim, dtype=self.dtype)(h))
+        return Dense(1, dtype=self.dtype)(h).squeeze(-1).astype(jnp.float32)

@@ -1,41 +1,58 @@
-"""Pallas TPU kernels (the reference's ``torchebm/cuda`` layer, TPU-native).
+"""Hand-written kernels (the reference's ``torchebm/cuda`` layer).
 
-The whole-chain kernels are auto-dispatched by the samplers on eager TPU
-calls with supported analytic energies (``LangevinDynamics(fused="auto")``,
-``HamiltonianMonteCarlo(fused="auto")``, ``MetropolisAdjustedLangevin(fused="auto")``,
-``ParallelTemperingLangevin(fused="auto")``); everything is also importable
-directly for hand-wired use, mirroring the reference's explicit-import stance
-(``cuda/__init__.py:8``).
+One kernel lives here: the whole-chain Langevin kernel
+(:mod:`torchebm_tpu.ops.fused_langevin`, Pallas on the Triton route), which
+:class:`~torchebm_tpu.samplers.LangevinDynamics` and
+:class:`~torchebm_tpu.samplers.GradientDescentSampler` dispatch to on
+eager GPU calls with supported analytic energies. :func:`kernels_enabled`
+is the one place that decides whether a kernel runs.
 """
 
-from .fused_hmc import mixture_hmc_chain, mixture_hmc_chain_trajectory
-from .fused_mala import mixture_mala_chain, mixture_mala_chain_trajectory
+import jax
+
 from .fused_langevin import (
     doublewell_langevin_chain,
     doublewell_langevin_chain_trajectory,
-    fused_langevin_step,
+    kernel_normals,
+    kernel_words,
+    langevin_chain,
     mixture_langevin_chain,
     mixture_langevin_chain_trajectory,
+    reference_chain,
+    threefry2x32,
 )
-from .fused_mlp_langevin import extract_mlp_layers, mlp_langevin_chain
-from .fused_pt import pt_langevin_chain, pt_langevin_chain_trajectory
-from .fused_ais import mixture_ais_run
-from .fused_sinkhorn import sinkhorn_log_fused
 
 __all__ = [
-    "sinkhorn_log_fused",
-    "mlp_langevin_chain",
-    "extract_mlp_layers",
-    "fused_langevin_step",
+    "kernels_enabled",
+    "langevin_chain",
+    "reference_chain",
+    "threefry2x32",
+    "kernel_normals",
+    "kernel_words",
     "doublewell_langevin_chain",
     "doublewell_langevin_chain_trajectory",
     "mixture_langevin_chain",
     "mixture_langevin_chain_trajectory",
-    "mixture_hmc_chain",
-    "mixture_hmc_chain_trajectory",
-    "mixture_mala_chain",
-    "mixture_mala_chain_trajectory",
-    "pt_langevin_chain",
-    "pt_langevin_chain_trajectory",
-    "mixture_ais_run",
 ]
+
+FUSED_MODES = ("auto", "off", "force")
+
+
+def kernels_enabled(fused: str) -> bool:
+    """Whether a ``fused`` setting runs the hand-written kernels here.
+
+    ``"off"``: never. ``"auto"``: on a GPU backend. ``"force"``: on a GPU
+    backend, and an error elsewhere — the kernels compile only for the GPU,
+    and a forced call must not quietly fall back to something else.
+    """
+    if fused not in FUSED_MODES:
+        raise ValueError(f"fused must be one of {FUSED_MODES}, got {fused!r}")
+    if fused == "off":
+        return False
+    on_gpu = jax.default_backend() == "gpu"
+    if fused == "force" and not on_gpu:
+        raise RuntimeError(
+            f"fused='force' needs a GPU backend; this one is "
+            f"{jax.default_backend()!r}. Use fused='auto' or 'off'."
+        )
+    return on_gpu

@@ -1,6 +1,6 @@
 """Distribution: mesh plumbing, guarded shim, sharded-buffer ops.
 
-TPU-native equivalent of ``torchebm/distributed.py`` + the FSDP2 path; see
+JAX equivalent of ``torchebm/distributed.py`` + the FSDP2 path; see
 ``parallel/mesh.py`` for the axis conventions.
 """
 

@@ -1,10 +1,10 @@
 r"""Sharded replay-buffer operations for multi-device/multi-host PCD.
 
-BASELINE requirement with no reference analogue (SURVEY §7 "hard parts"):
+Build addition with no reference analogue (SURVEY §7 "hard parts"):
 persistent-CD replay buffers sharded over the ``data`` axis need periodic
 cross-device shuffling so each device's chains mix over the global buffer.
 Design: keep the buffer dim-0 sharded; a global permutation applied under
-``jit`` lets XLA emit the all-to-all over ICI. ``shuffle_every`` steps of a
+``jit`` lets XLA emit the all-to-all between devices. ``shuffle_every`` steps of a
 training loop, call :func:`shuffle_sharded`.
 """
 

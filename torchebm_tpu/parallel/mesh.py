@@ -1,12 +1,12 @@
 r"""Device-mesh plumbing: construction, batch/param shardings, multi-host init.
 
-TPU-native replacement for the reference's torch.distributed stance
+JAX replacement for the reference's torch.distributed stance
 (``torchebm/distributed.py:1-21`` + the FSDP2 functional path,
 ``core/base_loss.py:439-622``). The design rule carries over: *components
 never require an initialized distributed context*; every helper degrades to a
 single-device no-op. Collectives only enter where the math is batch-global
 (OT cost matrices, pooled diagnostics, buffer shuffles) — and under
-``jit`` + ``NamedSharding`` XLA inserts them automatically over ICI/DCN.
+``jit`` + ``NamedSharding`` XLA inserts them automatically.
 
 Canonical axes:
 

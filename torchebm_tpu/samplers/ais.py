@@ -28,7 +28,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import Energy, GaussianEnergy
 
@@ -103,59 +103,6 @@ def _ais_impl(target, base, key, betas, step_size, n_samples, n_transitions):
     return _ais_statistics(base, x_f, logw, jnp.mean(accs), n_samples)
 
 
-def _fused_target_kwargs(target: Energy):
-    """Kernel target kwargs for the mixture-family evaluators, or None.
-
-    Mirrors the Langevin dispatch table's mixture/gaussian rows
-    (:data:`~torchebm_tpu.samplers.langevin.FUSED_DISPATCH`)."""
-    from ..core.energies import GaussianMixtureEnergy
-    from .langevin import _isotropic_scale
-
-    if type(target) is GaussianMixtureEnergy:
-        if isinstance(target.means, jax.core.Tracer) or isinstance(
-            target.scale, jax.core.Tracer
-        ):
-            return None
-        k, d = target.means.shape
-        if d > 64 or k * d > 1024:
-            return None
-        return dict(
-            means=target.means,
-            scale=float(target.scale),
-            log_weights=target.log_weights,
-        )
-    if type(target) is GaussianEnergy:
-        iso = _isotropic_scale(target)
-        if iso is not None and target.mean.ndim == 1 and target.mean.shape[-1] <= 64:
-            return dict(means=target.mean[None, :], scale=iso)
-        if (
-            not isinstance(target.mean, jax.core.Tracer)
-            and not isinstance(target.cov_inv, jax.core.Tracer)
-            and target.mean.ndim == 1
-            and target.mean.shape[-1] <= 32
-        ):
-            return dict(means=target.mean[None, :], precision=target.cov_inv)
-    return None
-
-
-def _ais_fusable(key, target, base, betas, fused: str) -> bool:
-    """Whole-run AIS kernel gate (eager TPU, isotropic Gaussian base,
-    mixture-family target, concrete schedule)."""
-    from .langevin import _isotropic_scale
-
-    if fused == "off":
-        return False
-    if fused != "force" and jax.default_backend() != "tpu":
-        return False
-    if isinstance(key, jax.core.Tracer) or isinstance(betas, jax.core.Tracer):
-        return False
-    if type(base) is not GaussianEnergy or _isotropic_scale(base) is None:
-        return False
-    if betas.shape[0] - 1 > 60_000:
-        return False  # beta table would exceed SMEM; the scan handles it
-    return _fused_target_kwargs(target) is not None
-
-
 def _ais_statistics(base, samples, logw, acc_mean, n_samples) -> AISResult:
     log_n = math.log(n_samples)
     log_z_ratio = jax.scipy.special.logsumexp(logw) - log_n
@@ -183,7 +130,6 @@ def annealed_importance_sampling(
     n_transitions: int = 1,
     step_size: float = 0.1,
     betas: Optional[Array] = None,
-    fused: str = "auto",
 ) -> AISResult:
     r"""Estimate :math:`\log Z` of ``target``'s density :math:`e^{-U}/Z`.
 
@@ -193,15 +139,7 @@ def annealed_importance_sampling(
     n_rungs+1)``. Returns an :class:`AISResult`; ``result.ess`` near
     ``n_samples`` indicates a well-mixed anneal, near 1 a collapsed one
     (increase ``n_rungs`` or ``n_transitions``).
-
-    Eager TPU calls with an isotropic Gaussian base and a mixture-family
-    target run the ENTIRE anneal — weight accumulation and every MALA
-    transition — in one Pallas kernel launch
-    (:func:`torchebm_tpu.ops.fused_ais.mixture_ais_run`; ``fused="off"``
-    forces the compiled scan, ``"force"`` skips the backend check).
     """
-    if fused not in ("auto", "off", "force"):
-        raise ValueError(f"fused must be 'auto', 'off' or 'force', got {fused!r}")
     if base is None:
         if dim is None:
             raise ValueError("provide either base= or dim= for the default base")
@@ -211,26 +149,6 @@ def annealed_importance_sampling(
     betas = jnp.asarray(betas, jnp.float32)
     if betas.ndim != 1 or betas.shape[0] < 2:
         raise ValueError("betas must be a 1D schedule with at least 2 entries")
-    if _ais_fusable(key, target, base, betas, fused):
-        from ..ops import fused_ais
-        from .langevin import _isotropic_scale
-
-        kargs = _fused_target_kwargs(target)
-        k_init, k_run = jax.random.split(key)
-        x0 = base.sample(k_init, int(n_samples))
-        seed = jax.random.randint(k_run, (), 0, jnp.iinfo(jnp.int32).max)
-        samples, logw, acc = fused_ais.mixture_ais_run(
-            x0,
-            base.mean,
-            _isotropic_scale(base),
-            betas=betas,
-            step_size=float(step_size),
-            n_transitions=int(n_transitions),
-            seed=seed,
-            interpret=fused == "force" and jax.default_backend() != "tpu",
-            **kargs,
-        )
-        return _ais_statistics(base, samples, logw, jnp.mean(acc), int(n_samples))
     return _ais_impl(
         target, base, key, betas, float(step_size), int(n_samples), int(n_transitions)
     )

@@ -1,11 +1,10 @@
 r"""Sampler contract and the shared compiled sampling loop.
 
-TPU-native re-design of ``torchebm/core/base_sampler.py:10-155``. The
-reference's ``sample()`` runs a host-Python loop launching device kernels per
-step; here the **entire chain** — thinning, trajectory recording, diagnostics,
-scheduler advancement — compiles to a single XLA program via nested
-``lax.scan``/``fori_loop``. This is the reference's Triton whole-chain-kernel
-ceiling (``cuda/fused_langevin.py:65-88``) achieved generically for any energy.
+JAX re-design of ``torchebm/core/base_sampler.py:10-155``. The reference's
+``sample()`` runs a host-Python loop launching device kernels per step; here
+the **entire chain** — thinning, trajectory recording, diagnostics, scheduler
+advancement — compiles to a single XLA program via nested
+``lax.scan``/``fori_loop``, for any energy.
 
 Contract parity (reference ``base_sampler.py``):
 
@@ -32,7 +31,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import Energy
 
@@ -40,34 +39,25 @@ Array = jax.Array
 
 __all__ = ["BaseSampler"]
 
-#: env override for the sampler RNG implementation ("auto" / "threefry" / "rbg").
+#: env override for the sampler RNG implementation ("auto", "threefry", "rbg",
+#: "unsafe_rbg").
 _RNG_IMPL_ENV = "TORCHEBM_RNG_IMPL"
 
 
 def _upgrade_key(key: Array, impl: str = "auto") -> Array:
-    """Rewrap a threefry key as an ``rbg`` key on TPU for hardware-rate noise.
+    """Rewrap a threefry key for the sampler's PRNG implementation.
 
-    The generic sampler scan is RNG-bound with the default threefry2x32
-    generator (measured 8.5 µs/step at 10k×2 chains on v5e); the ``rbg``
-    implementation keeps threefry-strength ``split``/``fold_in`` semantics but
-    draws bits through the XLA ``RngBitGenerator`` hardware path, halving the
-    step cost (measured 4.1 µs/step). This is the TPU-native answer to the
-    reference's in-kernel Philox draws (``torchebm/cuda/fused_langevin.py:34-62``).
-
-    Rules: ``impl="auto"`` upgrades to ``rbg`` only when the active backend is
-    TPU; explicitly-typed non-threefry keys are respected as-is; raw ``uint32``
+    ``impl`` is ``"threefry"``, ``"rbg"`` or ``"unsafe_rbg"``; ``"auto"``
+    keeps threefry. ``rbg``/``unsafe_rbg`` keep threefry-strength
+    ``split``/``fold_in`` but draw bits through XLA's ``RngBitGenerator``.
+    Explicitly typed non-threefry keys are respected as-is; raw ``uint32``
     key arrays (legacy ``jax.random.PRNGKey``) and typed threefry keys are
     rewrapped by duplicating their 2-word data into rbg's 4-word layout.
-    Opt out with ``TORCHEBM_RNG_IMPL=threefry`` or a sampler's
-    ``rng_impl="threefry"``.
+    ``TORCHEBM_RNG_IMPL`` overrides ``impl``.
     """
     impl = os.environ.get(_RNG_IMPL_ENV, impl)
-    if impl == "threefry":
+    if impl in ("auto", "threefry"):
         return key
-    if impl == "auto":
-        if jax.default_backend() != "tpu":
-            return key
-        impl = "rbg"
     if jnp.issubdtype(jnp.asarray(key).dtype, jax.dtypes.prng_key):
         if "threefry" not in str(jax.random.key_impl(key)):
             return key  # caller explicitly chose an impl; respect it
@@ -90,24 +80,6 @@ def _concrete_scalar(p) -> bool:
         and not isinstance(p, jax.core.Tracer)
         and jnp.ndim(p) == 0
     )
-
-
-def _gaussian_target(model):
-    """``(mean[None, :], precision)`` when ``model`` is a concrete
-    full-covariance :class:`~torchebm_tpu.core.energies.GaussianEnergy` the
-    chain kernels support (d ≤ 32 — the d² precision terms unroll in-kernel),
-    else None. Shared fused-dispatch helper for Langevin/MALA/HMC."""
-    from ..core.energies import GaussianEnergy
-
-    if type(model) is not GaussianEnergy:
-        return None
-    if isinstance(model.mean, jax.core.Tracer) or isinstance(
-        model.cov_inv, jax.core.Tracer
-    ):
-        return None
-    if model.mean.ndim != 1 or model.mean.shape[-1] > 32:
-        return None
-    return model.mean[None, :], model.cov_inv
 
 
 @partial(
@@ -211,7 +183,7 @@ def _sample_impl(
 
 
 class BaseSampler:
-    """Sampler base. Concrete samplers are ``flax.struct`` pytrees subclassing this.
+    """Sampler base. Concrete samplers are ``core.struct`` pytrees subclassing this.
 
     Required fields on subclasses: ``model`` (an :class:`Energy`). Hooks:
 
@@ -225,14 +197,12 @@ class BaseSampler:
     Optional static knobs (plain class attributes or non-pytree dataclass
     fields on subclasses):
 
-    - ``rng_impl`` (default ``"auto"``): PRNG implementation for the chain.
-      ``"auto"`` upgrades threefry keys to hardware-rate ``rbg`` keys on TPU
-      (see :func:`_upgrade_key`); ``"threefry"`` pins the portable generator.
+    - ``rng_impl`` (default ``"auto"``): PRNG implementation for the chain
+      (see :func:`_upgrade_key`).
     - ``unroll`` (default 1): unroll factor for the compiled transition loop.
-      Amortizes per-step loop overhead for cheap (analytic-energy) steps —
-      measured +37% at unroll=8 on the 10k-chain 8gaussians scan; leave at 1
-      for expensive (neural) energies where compile time would grow for no
-      throughput gain.
+      Amortizes per-step loop overhead for cheap (analytic-energy) steps;
+      leave at 1 for expensive (neural) energies where compile time would
+      grow for no throughput gain.
     """
 
     # NOTE: deliberately un-annotated — an annotation here would be inherited

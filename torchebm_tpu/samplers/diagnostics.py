@@ -1,6 +1,6 @@
 r"""Cross-chain MCMC convergence diagnostics: split-R̂ and effective sample size.
 
-**Build addition** (BASELINE.md): the reference's diagnostics stop at per-step
+**Build addition**: the reference's diagnostics stop at per-step
 batch mean/var/energy/acceptance (``base_sampler.py:21-34``); this module adds
 the standard cross-chain statistics — classic split-:math:`\hat R`/ESS
 (Gelman et al., *Bayesian Data Analysis* 3rd ed. §11.4-11.5) **and** the

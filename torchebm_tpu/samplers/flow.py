@@ -6,7 +6,7 @@ diffusion SDE), interpolant, prediction type (velocity/score/noise),
 EqM ``negate_velocity``, ODE ``reverse`` (via the :math:`s = t - t_0` change of
 variables), and the SDE diffusion form / last-step correction.
 
-TPU-native differences:
+Differences in this JAX design:
 
 - Fixed-step generation compiles to one ``lax.scan``; the adaptive path uses
   the on-device ``while_loop`` controller from the integrator layer — the
@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.schedulers import BaseScheduler, sched_init
 from ..integrators import (

@@ -9,10 +9,11 @@ from typing import Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_value
+from ..ops import FUSED_MODES
 from .base import BaseSampler
 
 Array = jax.Array
@@ -26,11 +27,10 @@ class GradientDescentSampler(BaseSampler):
     (reference ``gradient_descent.py:16-137``).
 
     Deterministic descent is exactly the whole-chain Langevin kernel at
-    ``noise_scale = 0`` (the ``+ 0·ε`` term is an exact no-op), so eager TPU
-    calls on supported analytic targets ride the same fused kernels as
-    :class:`~torchebm_tpu.samplers.langevin.LangevinDynamics` — shared
-    dispatch table, shared wrappers, seed-independent bitwise-deterministic
-    result. ``fused="off"`` pins the compiled scan.
+    ``noise_scale = 0``, so eager GPU calls on the analytic targets that
+    :class:`~torchebm_tpu.samplers.langevin.LangevinDynamics` runs as one
+    kernel take the same kernel (same ``fused`` contract, seed-independent
+    result). ``fused="off"`` pins the compiled scan.
     """
 
     model: Energy
@@ -38,10 +38,8 @@ class GradientDescentSampler(BaseSampler):
     fused: str = struct.field(pytree_node=False, default="auto")
 
     def __post_init__(self):
-        if self.fused not in ("auto", "off", "force"):
-            raise ValueError(
-                f"fused must be 'auto', 'off' or 'force', got {self.fused!r}"
-            )
+        if self.fused not in FUSED_MODES:
+            raise ValueError(f"fused must be one of {FUSED_MODES}, got {self.fused!r}")
 
     def step(self, carry, i, key, model_kwargs):
         del key
@@ -59,13 +57,12 @@ class GradientDescentSampler(BaseSampler):
     def _dispatch_row(self, key, x, model_kwargs):
         from .langevin import FUSED_DISPATCH, _fused_gates_ok
 
-        if not _fused_gates_ok(
-            self, key, x, model_kwargs, schedulables=(self.step_size,)
-        ):
-            return None
-        for row in FUSED_DISPATCH:
-            if type(self.model) is row.model_type and row.supports(self):
-                return row
+        if _fused_gates_ok(self, key, x, model_kwargs, schedulables=(self.step_size,)):
+            for row in FUSED_DISPATCH:
+                if type(self.model) is row.model_type and row.supports(self):
+                    return row
+        if self.fused == "force":
+            raise ValueError("fused='force': this call cannot run as one kernel")
         return None
 
     def sample(
@@ -105,8 +102,6 @@ class GradientDescentSampler(BaseSampler):
                     noise_scale=0.0,
                     seed=0,
                     clamp=None,
-                    interpret=self.fused == "force"
-                    and jax.default_backend() != "tpu",
                 )
             # unsupported state shape / n_steps < thin: fall back to the scan
         return super().sample(

@@ -8,7 +8,7 @@ the reference: energies clamped to ±1e10, Hamiltonian difference to ±50,
 ``safe=True`` leapfrog (force clamp + NaN scrub); everything is branch-free
 ``jnp.where`` so a chain never syncs to host.
 
-**Build addition over the reference (BASELINE.md):** Nesterov dual-averaging
+**Build addition over the reference:** Nesterov dual-averaging
 step-size adaptation (Hoffman & Gelman 2014, Algorithm 5) targeting a desired
 acceptance rate, run over ``n_warmup`` adaptation transitions inside the same
 compiled program — the adapted ``log ε`` lives in the scan carry.
@@ -21,16 +21,15 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
-from ..core.energies import Energy, GaussianEnergy, GaussianMixtureEnergy
+from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_init, sched_value
 from ..integrators import (
     BaseSymplecticIntegrator,
-    LeapfrogIntegrator,
     resolve_integrator,
 )
-from .base import BaseSampler, _concrete_scalar, _gaussian_target
+from .base import BaseSampler
 
 Array = jax.Array
 
@@ -92,15 +91,10 @@ class HamiltonianMonteCarlo(BaseSampler):
     integrator: BaseSymplecticIntegrator = None
     dual_averaging: bool = struct.field(pytree_node=False, default=False)
     target_accept: float = struct.field(pytree_node=False, default=0.8)
-    fused: str = struct.field(pytree_node=False, default="auto")
 
     def __post_init__(self):
         if self.n_leapfrog_steps <= 0:
             raise ValueError("n_leapfrog_steps must be positive")
-        if self.fused not in ("auto", "off", "force"):
-            raise ValueError(
-                f"fused must be 'auto', 'off' or 'force', got {self.fused!r}"
-            )
         integ = resolve_integrator(
             self.integrator, default="leapfrog", families=("symplectic",)
         )
@@ -174,137 +168,6 @@ class HamiltonianMonteCarlo(BaseSampler):
 
     def extra_diagnostics(self, carry, model_kwargs):
         return {"acceptance_rate": carry["accept_rate"]}
-
-    # -------------------------------------------------------- fused fast path
-
-    def _fusable(self, key, x, return_trajectory, return_diagnostics, model_kwargs) -> bool:
-        """Whether this exact call maps onto the whole-run Pallas HMC kernel
-        (:func:`torchebm_tpu.ops.fused_hmc.mixture_hmc_chain`).
-
-        Same conservative stance as :class:`LangevinDynamics`: eager
-        single-program TPU calls only, default leapfrog, unit or concrete
-        scalar/diagonal mass, constant step size, no
-        diagnostics/conditioning (thinned trajectories ride the DMA
-        trajectory kernels), d-dim isotropic
-        :class:`GaussianMixtureEnergy` with K·d ≤ 1024 or concrete
-        full-covariance :class:`GaussianEnergy` with d ≤ 32. ``fused="off"``
-        disables; ``"force"`` skips the TPU-backend check (kernel-stub tests).
-        """
-        if self.fused == "off":
-            return False
-        if self.fused != "force" and jax.default_backend() != "tpu":
-            return False
-        if return_diagnostics or model_kwargs:
-            return False
-        if isinstance(key, jax.core.Tracer) or isinstance(x, jax.core.Tracer):
-            return False
-        if type(self.integrator) is not LeapfrogIntegrator:
-            return False
-        if not _concrete_scalar(self.step_size):
-            return False
-        if self.mass is not None:
-            # scalar or (d,) diagonal concrete mass rides the kernel (the
-            # warmup(adapt_mass=True) output); anything traced falls back
-            if isinstance(self.mass, jax.core.Tracer):
-                return False
-            if jnp.ndim(self.mass) > 1:
-                return False
-        if type(self.model) is GaussianEnergy:
-            gt = _gaussian_target(self.model)
-            if gt is None:
-                return False
-            d = gt[0].shape[-1]
-        elif type(self.model) is GaussianMixtureEnergy:
-            if isinstance(self.model.means, jax.core.Tracer):
-                return False
-            k, d = self.model.means.shape
-            if d > 64 or k * d > 1024:
-                return False
-        else:
-            return False
-        if (
-            self.mass is not None
-            and jnp.ndim(self.mass) == 1
-            and jnp.shape(self.mass)[0] != d
-        ):
-            return False
-        return True
-
-    def sample(
-        self,
-        key: Array,
-        x: Optional[Array] = None,
-        dim=None,
-        n_steps: int = 100,
-        n_samples: int = 1,
-        thin: int = 1,
-        return_trajectory: bool = False,
-        return_diagnostics: bool = False,
-        *,
-        model_kwargs=None,
-    ):
-        """Run the chain; eager TPU calls on supported analytic mixture
-        energies dispatch to the whole-run Pallas kernel in
-        :mod:`torchebm_tpu.ops.fused_hmc` (momentum refresh, leapfrog and
-        Metropolis test all VMEM-resident), everything else to the shared
-        compiled scan."""
-        if self._fusable(key, x, return_trajectory, return_diagnostics, model_kwargs):
-            from ..ops import fused_hmc as ops
-
-            key_init, key_run = jax.random.split(key)
-            x0 = self._init_state(key_init, x, dim, n_samples)
-            interpret = self.fused == "force" and jax.default_backend() != "tpu"
-            if type(self.model) is GaussianEnergy:
-                means, precision = _gaussian_target(self.model)
-                target_kw = dict(precision=precision)
-            else:
-                means = self.model.means
-                target_kw = dict(
-                    scale=float(self.model.scale),
-                    log_weights=self.model.log_weights,
-                )
-            if x0.ndim == 2 and x0.shape[-1] == means.shape[-1]:
-                seed = jax.random.randint(key_run, (), 0, jnp.iinfo(jnp.int32).max)
-                if return_trajectory:
-                    if n_steps // thin >= 1:
-                        traj, _, _ = ops.mixture_hmc_chain_trajectory(
-                            x0,
-                            means,
-                            n_steps,
-                            float(self.step_size),
-                            self.n_leapfrog_steps,
-                            thin=thin,
-                            mass=self.mass,
-                            seed=seed,
-                            interpret=interpret,
-                            **target_kw,
-                        )
-                        return jnp.moveaxis(traj, 0, 1)
-                else:
-                    samples, _ = ops.mixture_hmc_chain(
-                        x0,
-                        means,
-                        n_steps,
-                        float(self.step_size),
-                        self.n_leapfrog_steps,
-                        mass=self.mass,
-                        seed=seed,
-                        interpret=interpret,
-                        **target_kw,
-                    )
-                    return samples
-            # unsupported state shape / n_steps < thin: fall through to the scan
-        return super().sample(
-            key,
-            x=x,
-            dim=dim,
-            n_steps=n_steps,
-            n_samples=n_samples,
-            thin=thin,
-            return_trajectory=return_trajectory,
-            return_diagnostics=return_diagnostics,
-            model_kwargs=model_kwargs,
-        )
 
     # ---------------------------------------------------------------- warmup
 

@@ -9,7 +9,9 @@ Reference: ``torchebm/samplers/langevin_dynamics.py:16-188``. Update rule
 via a pluggable SDE integrator (default Euler–Maruyama). ``step_size`` and
 ``noise_scale`` are schedulable; optional ``clamp`` bounds the state per step
 (image-EBM stabilization). The whole chain compiles to one XLA program through
-:class:`~torchebm_tpu.samplers.base.BaseSampler`.
+:class:`~torchebm_tpu.samplers.base.BaseSampler`; on a GPU, eager calls on
+the analytic energies the whole-chain kernel knows
+(:mod:`torchebm_tpu.ops.fused_langevin`) run as one kernel launch instead.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import (
     DoubleWellEnergy,
@@ -28,12 +30,14 @@ from ..core.energies import (
     GaussianMixtureEnergy,
 )
 from ..core.schedulers import BaseScheduler, sched_value
+from ..ops.fused_langevin import MAX_DIM, MAX_K_TIMES_D
 from ..integrators import (
     BaseSDERungeKuttaIntegrator,
     EulerMaruyamaIntegrator,
     resolve_integrator,
 )
-from .base import BaseSampler, _concrete_scalar, _gaussian_target, _upgrade_key
+from ..ops import FUSED_MODES, kernels_enabled
+from .base import BaseSampler, _concrete_scalar, _upgrade_key
 
 Array = jax.Array
 
@@ -46,10 +50,7 @@ def _block_noise_impl(sampler, x0, key, n_steps, block, model_kwargs):
 
     Draws the Gaussian noise for ``block`` steps in ONE ``jax.random.normal``
     call per outer iteration and unrolls the inner updates — fewer
-    RngBitGenerator launches and loop iterations per step. Measured on v5e
-    (10k chains, 8gaussians): 2.30 µs/step at block=4 vs 4.16 µs for the
-    per-step path — 4.35e9 updates/s, 29× the TorchEBM-CUDA estimate.
-    Semantics are identical to the generic path (schedulers at the absolute
+    random-bit launches and loop iterations per step. Semantics are identical to the generic path (schedulers at the absolute
     step index, clamp, step-aware energies); only the PRNG *stream* differs
     (one draw of shape ``(block, ...)`` instead of ``block`` draws).
     """
@@ -100,8 +101,7 @@ def _sched_concrete(p) -> bool:
 
 def _sched_table_arg(p, n_steps: int):
     """Chain-kernel argument form of a schedulable parameter: a Python float
-    (constant — baked into the kernel trace) or the concrete ``(n_steps,)``
-    per-step value table (staged into SMEM by the scheduled kernels)."""
+    (constant) or the concrete ``(n_steps,)`` per-step value table."""
     if _concrete_scalar(p):
         return float(p)
     return jax.vmap(p.value)(jnp.arange(n_steps))
@@ -119,8 +119,8 @@ class _FusedRow(NamedTuple):
 
     ``model_type``: exact model class the row handles (identity-matched — a
     subclass may override ``energy`` and must not inherit the kernel).
-    ``supports(sampler)``: target-parameter gate (concreteness, in-kernel
-    unroll size caps) — evaluated by ``_fusable`` before any state exists.
+    ``supports(sampler)``: target-parameter gate (concreteness, the kernel's
+    size caps) — evaluated by ``_fusable`` before any state exists.
     ``kernel_kwargs(sampler, x0)``: state-shape gate + the target-specific
     kernel arguments, or None to fall back to the scan path.
     ``chain``/``trajectory``: attribute names in ``ops.fused_langevin``
@@ -138,7 +138,7 @@ class _FusedRow(NamedTuple):
 def _isotropic_scale(model) -> Optional[float]:
     """σ if ``model`` is a concrete isotropic Gaussian (cov = σ²I), else None.
 
-    Shared by the Langevin and parallel-tempering fused dispatches."""
+    Shared by the Langevin and gradient-descent kernel dispatches."""
     import numpy as np
 
     if isinstance(model.cov, jax.core.Tracer) or isinstance(
@@ -159,24 +159,23 @@ def _dw_supports(s: "LangevinDynamics") -> bool:
 
 
 def _dw_kwargs(s: "LangevinDynamics", x0: Array) -> Optional[dict]:
+    if x0.ndim != 2 or x0.shape[-1] > MAX_DIM:
+        return None
     return dict(barrier_height=float(s.model.barrier_height), b=float(s.model.b))
 
 
 def _gaussian_supports(s: "LangevinDynamics") -> bool:
+    """Isotropic Gaussians only (a one-component mixture); full covariances
+    run on the scan."""
     iso = s._isotropic_gaussian_scale()
-    if iso is not None and s.model.mean.ndim == 1 and s.model.mean.shape[-1] <= 64:
-        return True
-    return _gaussian_target(s.model) is not None
+    return iso is not None and s.model.mean.ndim == 1 and s.model.mean.shape[-1] <= MAX_DIM
 
 
 def _gaussian_kwargs(s: "LangevinDynamics", x0: Array) -> Optional[dict]:
     m = s.model
     if x0.ndim != 2 or x0.shape[-1] != m.mean.shape[-1]:
         return None
-    iso = s._isotropic_gaussian_scale()
-    if iso is not None:
-        return dict(means=m.mean[None, :], scale=iso)
-    return dict(means=m.mean[None, :], precision=m.cov_inv)
+    return dict(means=m.mean[None, :], scale=s._isotropic_gaussian_scale())
 
 
 def _mixture_supports(s: "LangevinDynamics") -> bool:
@@ -184,7 +183,7 @@ def _mixture_supports(s: "LangevinDynamics") -> bool:
     if isinstance(m.means, jax.core.Tracer) or isinstance(m.scale, jax.core.Tracer):
         return False
     k, d = m.means.shape
-    return d <= 64 and k * d <= 1024
+    return d <= MAX_DIM and k * d <= MAX_K_TIMES_D
 
 
 def _mixture_kwargs(s: "LangevinDynamics", x0: Array) -> Optional[dict]:
@@ -196,18 +195,19 @@ def _mixture_kwargs(s: "LangevinDynamics", x0: Array) -> Optional[dict]:
 
 def _fused_gates_ok(sampler, key, x, model_kwargs, *, schedulables,
                     integrator=None) -> bool:
-    """The generic fused-dispatch gates shared by Langevin / PT / GD:
-    eager single-program calls on TPU (or forced), no conditioning, and
-    concrete schedulable parameters (plus the default-EM integrator where
-    one exists)."""
-    if sampler.fused == "off":
-        return False
-    if sampler.fused != "force" and jax.default_backend() != "tpu":
+    """The generic fused-dispatch gates shared by Langevin / GD: kernels
+    enabled on this backend (:func:`~torchebm_tpu.ops.kernels_enabled`),
+    eager single-program calls, no conditioning, and concrete schedulable
+    parameters (plus the default-EM integrator where one exists), with a
+    state that lives on one device."""
+    if not kernels_enabled(sampler.fused):
         return False
     if model_kwargs:
         return False
     if isinstance(key, jax.core.Tracer) or isinstance(x, jax.core.Tracer):
         return False
+    if isinstance(x, jax.Array) and len(x.sharding.device_set) > 1:
+        return False  # a mesh-sharded state: the kernel has no partitioning rule
     if integrator is not None and type(integrator) is not EulerMaruyamaIntegrator:
         return False
     return all(_sched_concrete(p) for p in schedulables)
@@ -227,7 +227,6 @@ def _call_fused_row(
     noise_scale,
     seed,
     clamp,
-    interpret,
 ):
     """Invoke a dispatch row's chain/trajectory kernel and package outputs.
 
@@ -242,7 +241,6 @@ def _call_fused_row(
         noise_scale=noise_scale,
         seed=seed,
         clamp=clamp,
-        interpret=interpret,
     )
     if return_trajectory or return_diagnostics:
         traj, final = getattr(ops, row.trajectory)(x0, thin=int(thin), **kargs, **common)
@@ -299,23 +297,13 @@ class LangevinDynamics(BaseSampler):
     #: transition-loop unroll factor (see BaseSampler docstring); >1 pays off
     #: for cheap analytic energies, not for neural ones.
     unroll: int = struct.field(pytree_node=False, default=1)
-    #: chain PRNG implementation: "auto" (rbg on TPU), "threefry", or "rbg".
+    #: chain PRNG implementation: "auto" (see ``base._upgrade_key``),
+    #: "threefry", "rbg" or "unsafe_rbg".
     rng_impl: str = struct.field(pytree_node=False, default="auto")
-    #: whole-chain NEURAL-energy kernel (``ops/fused_mlp_langevin``) for
-    #: arch-tagged SiLU-MLP energies (``WrappedEnergy(arch="silu_mlp")``).
-    #: Unlike ``fused`` this engages UNDER an outer jit (the CD train step),
-    #: so it is opt-in ("auto"): the pallas call has no autodiff/sharding
-    #: rules — params must be tangent-free (ContrastiveDivergence
-    #: stop-gradients them) and the call must not need partitioning.
-    #: Default OFF because measured SLOWER than the compiled scan on v5e
-    #: (0.43×–0.93× across d=2..128; see the module docstring) — the knob
-    #: exists to reproduce that measurement.
-    fused_neural: str = struct.field(pytree_node=False, default="off")
     #: >1 draws Gaussian noise for this many steps per PRNG call and unrolls
     #: the updates (default-EM path, thin=1, no trajectory/diagnostics only;
     #: falls back otherwise). Same distribution and scheduler semantics as
-    #: the generic path but a different — equally valid — noise stream;
-    #: measured 29x baseline at noise_block=4 vs 16x for the per-step path.
+    #: the generic path but a different — equally valid — noise stream.
     noise_block: int = struct.field(pytree_node=False, default=1)
 
     def __post_init__(self):
@@ -323,14 +311,8 @@ class LangevinDynamics(BaseSampler):
             raise ValueError(f"clamp min must be < max, got {self.clamp}")
         if self.noise_block < 1:
             raise ValueError("noise_block must be >= 1")
-        if self.fused not in ("auto", "off", "force"):
-            raise ValueError(
-                f"fused must be 'auto', 'off' or 'force', got {self.fused!r}"
-            )
-        if self.fused_neural not in ("auto", "off", "force"):
-            raise ValueError(
-                f"fused_neural must be 'auto', 'off' or 'force', got {self.fused_neural!r}"
-            )
+        if self.fused not in FUSED_MODES:
+            raise ValueError(f"fused must be one of {FUSED_MODES}, got {self.fused!r}")
         integ = resolve_integrator(
             self.integrator, default="euler_maruyama", families=("sde",)
         )
@@ -352,32 +334,6 @@ class LangevinDynamics(BaseSampler):
 
     # -------------------------------------------------------- fused fast path
 
-    def _neural_fusable(
-        self, return_trajectory, return_diagnostics, thin, model_kwargs
-    ) -> bool:
-        """Whether this call may ride the neural SiLU-MLP chain kernel.
-
-        Opt-in (``fused_neural="auto"``), TPU backend (``"force"`` skips the
-        check — kernel-stub tests), arch-tagged :class:`WrappedEnergy`,
-        default Euler–Maruyama, constant concrete schedules, no thin/
-        trajectory/diagnostics/conditioning. Tracers are ALLOWED — the
-        kernel dispatches inside the jitted CD train step (params must be
-        tangent-free; ``ContrastiveDivergence`` guarantees it).
-        """
-        from ..core.energies import WrappedEnergy
-
-        if self.fused_neural == "off":
-            return False
-        if self.fused_neural != "force" and jax.default_backend() != "tpu":
-            return False
-        if model_kwargs or thin != 1 or return_trajectory or return_diagnostics:
-            return False
-        if type(self.integrator) is not EulerMaruyamaIntegrator:
-            return False
-        if not _concrete_scalar(self.step_size) or not _concrete_scalar(self.noise_scale):
-            return False
-        return isinstance(self.model, WrappedEnergy) and self.model.arch == "silu_mlp"
-
     def _fused_row(self) -> Optional[_FusedRow]:
         """The :data:`FUSED_DISPATCH` row claiming this sampler's model, if any."""
         for row in FUSED_DISPATCH:
@@ -388,35 +344,41 @@ class LangevinDynamics(BaseSampler):
     def _dispatch_row(
         self, key, x, model_kwargs
     ) -> Optional[_FusedRow]:
-        """Generic fused gates + row lookup in ONE pass (None = scan path)."""
-        if not _fused_gates_ok(
+        """Generic fused gates + row lookup in ONE pass (None = scan path).
+
+        ``fused="force"`` raises where the call cannot run as one kernel."""
+        row = None
+        if _fused_gates_ok(
             self, key, x, model_kwargs,
             schedulables=(self.step_size, self.noise_scale),
             integrator=self.integrator,
         ):
-            return None
-        return self._fused_row()
+            row = self._fused_row()
+        if row is None and self.fused == "force":
+            raise ValueError(
+                "fused='force': this call cannot run as one kernel (it needs an "
+                "eager call, no model_kwargs, the default Euler-Maruyama "
+                "integrator, concrete schedules, and a DoubleWellEnergy, an "
+                "isotropic GaussianEnergy or a GaussianMixtureEnergy with "
+                f"d <= {MAX_DIM} and K*d <= {MAX_K_TIMES_D})"
+            )
+        return row
 
     def _fusable(self, key, x, return_trajectory, return_diagnostics, model_kwargs) -> bool:
-        """Whether this exact call maps onto a whole-chain Pallas kernel.
+        """Whether this exact call maps onto the whole-chain kernel.
 
-        The dispatch is conservative: eager single-program calls only (inside a
-        user ``jit``/``shard_map`` the generic scan path is used — it shards and
-        traces transparently), default Euler–Maruyama, constant OR scheduled
-        step/noise (any :class:`BaseScheduler` with a concrete table — e.g. the
-        Energy-Matching :class:`TemperatureScheduler` — rides the scheduled
-        kernels' SMEM tables), thinned trajectories AND diagnostics for both
-        constant and scheduled chains (every kept state DMA'd to HBM
-        in-kernel — the SMEM schedule table and the trajectory DMA compose;
-        mean/var/energy then computed from the kernel trajectory), no
-        conditioning, and an analytic energy one of the :data:`FUSED_DISPATCH`
-        rows claims (:class:`DoubleWellEnergy`, d-dim isotropic
-        :class:`GaussianMixtureEnergy` with K·d ≤ 1024, and any concrete
-        :class:`GaussianEnergy` — isotropic covariances ride the 1-component
-        mixture kernel, full covariances with d ≤ 32 the precision-packed
-        Gaussian evaluator). ``clamp`` is supported (folded into the kernels).
-        ``fused="off"`` disables; ``"force"`` skips the TPU-backend check
-        (kernel-stub tests).
+        The dispatch is conservative: GPU backend, eager single-program calls
+        only (inside a user ``jit``/``shard_map`` the generic scan path is
+        used — it shards and traces transparently), default Euler–Maruyama,
+        constant OR scheduled step/noise (any :class:`BaseScheduler` with a
+        concrete table — e.g. the Energy-Matching
+        :class:`TemperatureScheduler`), thinned trajectories AND diagnostics
+        (kept states stored in-kernel; mean/var/energy then computed from the
+        kernel trajectory), no conditioning, and an analytic energy one of
+        the :data:`FUSED_DISPATCH` rows claims (:class:`DoubleWellEnergy`,
+        isotropic :class:`GaussianEnergy`, and :class:`GaussianMixtureEnergy`,
+        with d ≤ 64 and K·d ≤ 1024). ``clamp`` is folded into the kernel.
+        ``fused="off"`` disables; ``"force"`` raises instead of falling back.
         """
         return self._dispatch_row(key, x, model_kwargs) is not None
 
@@ -440,49 +402,10 @@ class LangevinDynamics(BaseSampler):
         *,
         model_kwargs=None,
     ):
-        """Run the chain; eager TPU calls on supported analytic energies are
-        dispatched to the whole-chain Pallas kernels in
-        :mod:`torchebm_tpu.ops.fused_langevin` (zero HBM round-trips between
-        steps), everything else to the shared compiled scan. Arch-tagged
-        SiLU-MLP energies additionally ride the neural chain kernel
-        (:mod:`torchebm_tpu.ops.fused_mlp_langevin`) when
-        ``fused_neural="auto"`` — including under an outer jit (the CD
-        train step; see the field docstring for the contract)."""
-        if self._neural_fusable(return_trajectory, return_diagnostics, thin, model_kwargs):
-            from ..ops import fused_mlp_langevin as nops
-
-            layers = nops.extract_mlp_layers(self.model.params)
-            d_in = (
-                jnp.shape(x)[-1]
-                if x is not None
-                else (dim if isinstance(dim, int) else None)
-            )
-            widths = (
-                [d_in] + [w.shape[1] for w, _ in layers[:-1]]
-                if layers is not None and d_in is not None
-                else None
-            )
-            if (
-                widths is not None
-                and (x is None or jnp.ndim(x) == 2)
-                and layers[0][0].shape[0] == d_in
-                and max(widths) <= nops._MAX_WIDTH
-            ):
-                key_init, key_run = jax.random.split(key)
-                x0 = self._init_state(key_init, x, dim, n_samples)
-                seed = jax.random.randint(key_run, (), 0, jnp.iinfo(jnp.int32).max)
-                return nops.mlp_langevin_chain(
-                    x0,
-                    layers,
-                    n_steps,
-                    float(self.step_size),
-                    float(self.noise_scale),
-                    seed=seed,
-                    clamp=self.clamp,
-                    interpret=self.fused_neural == "force"
-                    and jax.default_backend() != "tpu",
-                )
-            # unsupported shape/width: fall through to the scan path
+        """Run the chain; eager GPU calls on supported analytic energies are
+        dispatched to the whole-chain kernel in
+        :mod:`torchebm_tpu.ops.fused_langevin` (the state stays in registers
+        for all steps), everything else to the shared compiled scan."""
         row = self._dispatch_row(key, x, model_kwargs)
         if row is not None:
             key_init, key_run = jax.random.split(key)
@@ -505,8 +428,11 @@ class LangevinDynamics(BaseSampler):
                     noise_scale=_sched_table_arg(self.noise_scale, n_steps),
                     seed=seed,
                     clamp=self.clamp,
-                    interpret=self.fused == "force"
-                    and jax.default_backend() != "tpu",
+                )
+            if self.fused == "force":
+                raise ValueError(
+                    "fused='force': the state must be (n_chains, d) matching the "
+                    "target, and n_steps // thin >= 1 for trajectories"
                 )
             # unsupported state shape / n_steps < thin: fall through to the scan
         if (

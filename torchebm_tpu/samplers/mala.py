@@ -19,15 +19,15 @@ clamped to ±1e10 and the log-ratio to ±50; acceptance is branch-free
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
-from ..core.energies import Energy, GaussianEnergy, GaussianMixtureEnergy
+from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_value
-from .base import BaseSampler, _concrete_scalar, _gaussian_target
+from .base import BaseSampler
 
 Array = jax.Array
 
@@ -41,25 +41,10 @@ class MetropolisAdjustedLangevin(BaseSampler):
     ``step_size`` is schedulable. Diagnostics add ``acceptance_rate`` to the
     standard ``mean``/``var``/``energy`` keys. A practical tuning target is an
     acceptance rate near 0.574 (Roberts & Rosenthal optimal scaling).
-
-    Eager TPU calls on concrete d-dim isotropic
-    :class:`~torchebm_tpu.core.energies.GaussianMixtureEnergy` targets and
-    concrete full-covariance :class:`~torchebm_tpu.core.energies.GaussianEnergy`
-    targets (d ≤ 32, precision-packed) dispatch to the whole-chain Pallas kernel
-    (:func:`torchebm_tpu.ops.fused_mala.mixture_mala_chain`); ``fused``
-    follows the same "auto"/"off"/"force" contract as
-    :class:`~torchebm_tpu.samplers.langevin.LangevinDynamics`.
     """
 
     model: Energy = None
     step_size: Union[float, BaseScheduler] = 1e-2
-    fused: str = struct.field(pytree_node=False, default="auto")
-
-    def __post_init__(self):
-        if self.fused not in ("auto", "off", "force"):
-            raise ValueError(
-                f"fused must be 'auto', 'off' or 'force', got {self.fused!r}"
-            )
 
     def _log_q(self, b: Array, a: Array, grad_a: Array, eta) -> Array:
         diff = b - a + eta * grad_a
@@ -100,97 +85,3 @@ class MetropolisAdjustedLangevin(BaseSampler):
 
     def extra_diagnostics(self, carry, model_kwargs):
         return {"acceptance_rate": carry["accept_rate"]}
-
-    # -------------------------------------------------------- fused fast path
-
-    def _fusable(self, key, x, return_trajectory, return_diagnostics, model_kwargs) -> bool:
-        """Same conservative stance as LangevinDynamics._fusable: eager
-        single-program TPU calls, constant step size, no
-        diagnostics/conditioning (thinned trajectories ride the DMA
-        trajectory kernels), concrete d-dim isotropic mixture
-        with K·d ≤ 1024 or concrete full-covariance Gaussian with d ≤ 32."""
-        if self.fused == "off":
-            return False
-        if self.fused != "force" and jax.default_backend() != "tpu":
-            return False
-        if return_diagnostics or model_kwargs:
-            return False
-        if isinstance(key, jax.core.Tracer) or isinstance(x, jax.core.Tracer):
-            return False
-        if not _concrete_scalar(self.step_size):
-            return False
-        if type(self.model) is GaussianEnergy:
-            return _gaussian_target(self.model) is not None
-        if type(self.model) is not GaussianMixtureEnergy:
-            return False
-        if isinstance(self.model.means, jax.core.Tracer):
-            return False
-        k, d = self.model.means.shape
-        return d <= 64 and k * d <= 1024
-
-    def sample(
-        self,
-        key: Array,
-        x: Optional[Array] = None,
-        dim=None,
-        n_steps: int = 100,
-        n_samples: int = 1,
-        thin: int = 1,
-        return_trajectory: bool = False,
-        return_diagnostics: bool = False,
-        *,
-        model_kwargs=None,
-    ):
-        if self._fusable(key, x, return_trajectory, return_diagnostics, model_kwargs):
-            from ..ops import fused_mala as ops
-
-            key_init, key_run = jax.random.split(key)
-            x0 = self._init_state(key_init, x, dim, n_samples)
-            interpret = self.fused == "force" and jax.default_backend() != "tpu"
-            if type(self.model) is GaussianEnergy:
-                means, precision = _gaussian_target(self.model)
-                target_kw = dict(precision=precision)
-            else:
-                means = self.model.means
-                target_kw = dict(
-                    scale=float(self.model.scale),
-                    log_weights=self.model.log_weights,
-                )
-            if x0.ndim == 2 and x0.shape[-1] == means.shape[-1]:
-                seed = jax.random.randint(key_run, (), 0, jnp.iinfo(jnp.int32).max)
-                if return_trajectory:
-                    if n_steps // thin >= 1:
-                        traj, _, _ = ops.mixture_mala_chain_trajectory(
-                            x0,
-                            means,
-                            n_steps,
-                            float(self.step_size),
-                            thin=thin,
-                            seed=seed,
-                            interpret=interpret,
-                            **target_kw,
-                        )
-                        return jnp.moveaxis(traj, 0, 1)
-                else:
-                    samples, _ = ops.mixture_mala_chain(
-                        x0,
-                        means,
-                        n_steps,
-                        float(self.step_size),
-                        seed=seed,
-                        interpret=interpret,
-                        **target_kw,
-                    )
-                    return samples
-            # unsupported state shape / n_steps < thin: fall through to the scan
-        return super().sample(
-            key,
-            x=x,
-            dim=dim,
-            n_steps=n_steps,
-            n_samples=n_samples,
-            thin=thin,
-            return_trajectory=return_trajectory,
-            return_diagnostics=return_diagnostics,
-            model_kwargs=model_kwargs,
-        )

@@ -7,7 +7,7 @@ sampling), the **generalized** U-turn criterion on accumulated momentum
 (Betancourt 2017), and **biased progressive** sampling at the doubling level
 so new subtrees are favored.
 
-TPU-native design: the recursive tree of the paper is replaced by the
+Design: the recursive tree of the paper is replaced by the
 iterative formulation — an outer ``lax.while_loop`` over doublings and an
 inner ``lax.while_loop`` over the :math:`2^{\text{depth}}` leapfrog steps of
 each new subtree, with a **checkpoint stack** of size ``max_tree_depth`` that
@@ -31,7 +31,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_init, sched_value

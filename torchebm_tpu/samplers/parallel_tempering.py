@@ -3,7 +3,7 @@ r"""Parallel-tempered Langevin dynamics (replica exchange).
 The reference ships only a constructor stub for parallel tempering
 (``torchebm/losses/contrastive_divergence.py:246-263`` — commented-out body
 that runs per-temperature chains in a host Python loop and swaps one random
-adjacent pair per sweep). This module implements the real thing, TPU-first:
+adjacent pair per sweep). This module implements the real thing:
 the replica ladder is just **another batch axis** ``(R, B, *data_shape)``,
 every temperature steps in the same fused XLA program, and the deterministic
 even–odd adjacent-pair sweep (Okabe et al. 2001) makes all swap attempts
@@ -34,7 +34,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_value
@@ -69,10 +69,6 @@ class ParallelTemperingLangevin(BaseSampler):
     noise_scale: Union[float, BaseScheduler] = 1.0
     swap_every: int = struct.field(pytree_node=False, default=5)
     clamp: Optional[Tuple[float, float]] = struct.field(pytree_node=False, default=None)
-    #: whole-ladder Pallas kernel dispatch ("auto"/"off"/"force") — eager TPU
-    #: calls on mixture-family targets run the entire replica ladder,
-    #: including the exchange sweeps, in ONE kernel (``ops/fused_pt.py``).
-    fused: str = struct.field(pytree_node=False, default="auto")
 
     def __post_init__(self):
         temps = tuple(float(t) for t in self.temperatures)
@@ -86,10 +82,6 @@ class ParallelTemperingLangevin(BaseSampler):
             raise ValueError("swap_every must be >= 1")
         if self.clamp is not None and self.clamp[0] >= self.clamp[1]:
             raise ValueError(f"clamp min must be < max, got {self.clamp}")
-        if self.fused not in ("auto", "off", "force"):
-            raise ValueError(
-                f"fused must be 'auto', 'off' or 'force', got {self.fused!r}"
-            )
         object.__setattr__(self, "temperatures", temps)
 
     # ------------------------------------------------------------------
@@ -173,123 +165,6 @@ class ParallelTemperingLangevin(BaseSampler):
     def extra_diagnostics(self, carry, model_kwargs):
         return {"swap_acceptance_rate": carry["swap_accept"]}
 
-    # ------------------------------------------------------ fused fast path
-
-    def _isotropic_gaussian_scale(self):
-        from .langevin import _isotropic_scale
-
-        return _isotropic_scale(self.model)
-
-    def _fused_row(self):
-        """The mixture-family :data:`~torchebm_tpu.samplers.langevin.FUSED_DISPATCH`
-        row claiming this model, if any — the PT ladder kernel shares the
-        in-kernel target evaluators with the mixture chain kernels, so
-        double-well (a different kernel family) stays on the scan path."""
-        from .langevin import FUSED_DISPATCH
-
-        for row in FUSED_DISPATCH:
-            if row.chain != "mixture_langevin_chain":
-                continue
-            if type(self.model) is row.model_type and row.supports(self):
-                return row
-        return None
-
-    def _fusable(self, key, x, return_trajectory, return_diagnostics, model_kwargs):
-        """Whole-ladder kernel gate: eager single-program calls, constant
-        concrete step/noise, no conditioning/diagnostics (``return_trajectory``
-        IS supported — the cold chain's kept states DMA out in-kernel), and a
-        mixture-family target (isotropic mixture with K·d ≤ 1024, or any
-        concrete Gaussian — full covariances with d ≤ 32 via the
-        precision-packed evaluator). Same conventions as
-        :meth:`LangevinDynamics._fusable`."""
-        return (
-            self._dispatch_row(
-                key, x, return_trajectory, return_diagnostics, model_kwargs
-            )
-            is not None
-        )
-
-    def _dispatch_row(self, key, x, return_trajectory, return_diagnostics, model_kwargs):
-        """Gates + row lookup in ONE pass (None = scan path); the PT kernel
-        requires CONSTANT step/noise (no schedule tables), hence
-        ``_concrete_scalar`` rather than the Langevin gate's table check."""
-        from .base import _concrete_scalar
-        from .langevin import _fused_gates_ok
-
-        if return_diagnostics:
-            return None
-        if not _fused_gates_ok(self, key, x, model_kwargs, schedulables=()):
-            return None
-        if not _concrete_scalar(self.step_size) or not _concrete_scalar(
-            self.noise_scale
-        ):
-            return None
-        return self._fused_row()
-
-    def sample(
-        self,
-        key: Array,
-        x: Optional[Array] = None,
-        dim=None,
-        n_steps: int = 100,
-        n_samples: int = 1,
-        thin: int = 1,
-        return_trajectory: bool = False,
-        return_diagnostics: bool = False,
-        *,
-        model_kwargs=None,
-    ):
-        """Run the tempered ladder and return the cold chain; eager TPU calls
-        on mixture-family targets dispatch the whole ladder — Langevin steps
-        AND exchange sweeps — to :func:`torchebm_tpu.ops.fused_pt.pt_langevin_chain`
-        (one kernel launch, state never leaves VMEM)."""
-        row = self._dispatch_row(
-            key, x, return_trajectory, return_diagnostics, model_kwargs
-        )
-        if row is not None:
-            from ..ops import fused_pt as ops_pt
-
-            key_init, key_run = jax.random.split(key)
-            x0 = self._init_state(key_init, x, dim, n_samples)
-            kargs = row.kernel_kwargs(self, x0)
-            if kargs is not None and (
-                not return_trajectory or n_steps // thin >= 1
-            ):
-                seed = jax.random.randint(key_run, (), 0, jnp.iinfo(jnp.int32).max)
-                replicas = jnp.broadcast_to(
-                    x0[None], (self.n_replicas,) + x0.shape
-                )
-                common = dict(
-                    n_steps=int(n_steps),
-                    step_size=float(self.step_size),
-                    noise_scale=float(self.noise_scale),
-                    betas=tuple(1.0 / t for t in self.temperatures),
-                    swap_every=int(self.swap_every),
-                    seed=seed,
-                    clamp=self.clamp,
-                    interpret=self.fused == "force"
-                    and jax.default_backend() != "tpu",
-                )
-                if return_trajectory:
-                    traj, _, _ = ops_pt.pt_langevin_chain_trajectory(
-                        replicas, thin=int(thin), **kargs, **common
-                    )
-                    return jnp.moveaxis(traj, 0, 1)
-                ladder, _ = ops_pt.pt_langevin_chain(replicas, **kargs, **common)
-                return ladder[0]
-            # unsupported state shape / n_steps < thin: fall back to the scan
-        return super().sample(
-            key,
-            x=x,
-            dim=dim,
-            n_steps=n_steps,
-            n_samples=n_samples,
-            thin=thin,
-            return_trajectory=return_trajectory,
-            return_diagnostics=return_diagnostics,
-            model_kwargs=model_kwargs,
-        )
-
     # ------------------------------------------------------------- replicas
 
     def run_replicas(
@@ -314,34 +189,6 @@ class ParallelTemperingLangevin(BaseSampler):
                 f"replicas must be (n_replicas={self.n_replicas}, B, *data_shape); "
                 f"got {replicas.shape}"
             )
-        # eager full-ladder kernel dispatch (the PT-CD persistence hot path
-        # when driven outside a user jit); traced/conditioned calls use the
-        # compiled scan, which shards and differentiates transparently
-        row = (
-            self._dispatch_row(key, replicas, False, False, model_kwargs)
-            if not isinstance(replicas, jax.core.Tracer) and replicas.ndim == 3
-            else None
-        )
-        if row is not None:
-            from ..ops import fused_pt as ops_pt
-
-            kargs = row.kernel_kwargs(self, replicas[0])
-            if kargs is not None:
-                seed = jax.random.randint(key, (), 0, jnp.iinfo(jnp.int32).max)
-                ladder, acc = ops_pt.pt_langevin_chain(
-                    replicas,
-                    n_steps=int(n_steps),
-                    step_size=float(self.step_size),
-                    noise_scale=float(self.noise_scale),
-                    betas=tuple(1.0 / t for t in self.temperatures),
-                    swap_every=int(self.swap_every),
-                    seed=seed,
-                    clamp=self.clamp,
-                    interpret=self.fused == "force"
-                    and jax.default_backend() != "tpu",
-                    **kargs,
-                )
-                return ladder, acc
         return _run_replicas_impl(self, replicas, key, n_steps, model_kwargs or {})
 
 

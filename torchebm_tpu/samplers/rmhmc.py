@@ -22,7 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..core import struct
 
 from ..core.energies import Energy
 from ..core.schedulers import BaseScheduler, sched_value

@@ -1,12 +1,10 @@
 """NUTS→HMC trajectory-length handoff (``tune_trajectory_length``).
 
 Build addition with no reference counterpart (the reference ships neither
-NUTS nor dual averaging; BASELINE config 2 asks for "HMC + dual-averaging"
-made turnkey). The measured production recipe (BASELINE.md, sampler
-shootout): batched NUTS on SIMD hardware pays the **max** tree size across
-lockstep chains every draw (a single depth-8 straggler makes all 256 chains
-pay 2⁸ leapfrog leaves — 392× below HMC in ESS/s on the corr-Gaussian
-protocol), so NUTS's dynamic trajectories are worth one *pilot*, not a
+NUTS nor dual averaging; "HMC + dual-averaging" made turnkey). Batched NUTS
+on SIMD hardware pays the **max** tree size across lockstep chains every
+draw (a single depth-8 straggler makes all 256 chains pay 2⁸ leapfrog
+leaves), so NUTS's dynamic trajectories are worth one *pilot*, not a
 production run: use NUTS to find the trajectory length, then hand off to HMC
 at ``n_leapfrog ≈ 2^mean_tree_depth`` for the production draws.
 
@@ -84,10 +82,9 @@ def tune_trajectory_length(
        no-U-turn criterion is what actually *measures* how long trajectories
        should be on this target.
     3. **HMC warmup** at ``n_leapfrog = max(2, round(2^mean_tree_depth))`` —
-       re-adapts ε for fixed-length HMC, whose per-draw cost on TPU is the
-       fixed ``n_leapfrog`` gradient evaluations (and which rides the fused
-       whole-run kernels for supported targets), not the across-chain max
-       tree size.
+       re-adapts ε for fixed-length HMC, whose per-draw cost is the fixed
+       ``n_leapfrog`` gradient evaluations, not the across-chain max tree
+       size.
 
     This is eager tuning code (one host sync to read the mean depth); run it
     once per target, not inside a jitted loop.

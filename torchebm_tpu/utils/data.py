@@ -2,7 +2,7 @@
 
 The reference leans on ``torch.utils.data.DataLoader`` for overlap
 (``torchebm/datasets/generators.py`` Datasets feed a DataLoader); the
-TPU-native equivalents are explicit:
+JAX equivalents are explicit:
 
 - :func:`stack_batches` turns an iterable of per-step batches into the
   stacked pytree :meth:`~torchebm_tpu.core.trainer.BaseTrainer.train_epoch_scanned`

@@ -1,17 +1,17 @@
 r"""Mixed-precision policy: params in f32, compute in bf16.
 
-TPU-native replacement for the reference's AMP machinery
+JAX replacement for the reference's AMP machinery
 (``torchebm/core/base_module.py:143-176``: ``setup_mixed_precision`` +
 ``autocast_context`` + the trainer's GradScaler path,
-``base_trainer.py:150-197``). On TPU the story is simpler and faster:
+``base_trainer.py:150-197``). In JAX the story is simpler:
 
 - **bf16 has f32's exponent range**, so there is no GradScaler / loss-scaling
   — overflow handling dissolves entirely (documented in
   ``core/trainer.py:10-12``).
-- The **MXU computes natively in bf16**; the policy is purely a dtype
+- The **tensor cores compute in bf16**; the policy is purely a dtype
   discipline: keep parameters and optimizer state in f32 (master weights),
   run matmuls/convs in bf16, accumulate reductions and the final loss in f32.
-- In flax that discipline is the module's ``dtype`` argument (params stay
+- In the library's networks that discipline is the module's ``dtype`` argument (params stay
   f32, activations cast per layer). Every network in
   :mod:`torchebm_tpu.models` takes ``dtype=``; :class:`Policy` packages the
   same rule for arbitrary apply functions and input batches.
@@ -19,7 +19,7 @@ TPU-native replacement for the reference's AMP machinery
 Usage::
 
     policy = bf16_policy()
-    net = MLPEnergy(dtype=policy.compute_dtype)        # flax-native route
+    net = MLPEnergy(dtype=policy.compute_dtype)        # module-native route
     apply = policy.wrap(net.apply)                     # or wrap any callable
     x16 = policy.cast_to_compute(batch)                # cast inputs once
 
@@ -57,7 +57,7 @@ class Policy:
     """A jmp-style three-dtype precision policy.
 
     - ``param_dtype``: master parameter / optimizer-state dtype (keep f32).
-    - ``compute_dtype``: matmul/activation dtype (bf16 on TPU).
+    - ``compute_dtype``: matmul/activation dtype (bf16 for tensor cores).
     - ``output_dtype``: dtype of user-facing outputs (losses, energies).
     """
 
@@ -87,7 +87,7 @@ class Policy:
 
 
 def bf16_policy() -> Policy:
-    """The standard TPU training policy: f32 params, bf16 compute, f32 outputs."""
+    """The standard mixed-precision policy: f32 params, bf16 compute, f32 outputs."""
     return Policy(jnp.float32, jnp.bfloat16, jnp.float32)
 
 

@@ -1,7 +1,7 @@
 r"""Profiling helpers: trace contexts, scopes, and wall-clock benchmarking.
 
 Reference: ``torchebm/utils/profiling.py:37-95`` (torch.profiler wrapper with
-table print + Chrome trace). TPU equivalents:
+table print + Chrome trace). JAX equivalents:
 
 - :func:`profile_context` wraps ``jax.profiler.trace`` — produces a
   TensorBoard/XPlane trace (open with ``tensorboard --logdir`` or

@@ -9,7 +9,7 @@ Reference: ``torchebm/utils/training.py:11-118``. JAX translation:
   :func:`freeze_mask` + ``optax.masked``.
 - Checkpoints are Orbax (``save_checkpoint``/``load_checkpoint``): params,
   EMA, optimizer state, step, and any extra state (replay buffers, PRNG keys)
-  as one pytree — the TPU-canonical persistence layer.
+  as one pytree — the JAX-canonical persistence layer.
 """
 
 from __future__ import annotations
